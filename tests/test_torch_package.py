@@ -1,0 +1,147 @@
+"""The PyTorch port as a package: its config dataclasses mirror the JAX
+package's field for field, it imports no jax, and state crosses between
+the packages exactly."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from yade_openfoam_coupling_tpu.models import coupled as jcd
+from yade_openfoam_coupling_tpu.models import pimple as jpm
+from yade_openfoam_coupling_tpu.models import piso as jps
+from yade_openfoam_coupling_tpu.models import turbulence as jtb
+from yade_openfoam_coupling_tpu.models.fields import (
+    make_fluid_state,
+    make_particle_state,
+    make_turbulence_state,
+    SimState,
+)
+from yade_openfoam_coupling_tpu.ops import coupling as jcp
+from yade_openfoam_coupling_tpu.ops import dem as jdem
+from yade_openfoam_coupling_tpu.ops import pressure as jpr
+from yade_openfoam_coupling_tpu.ops.grid import Grid
+from yade_openfoam_coupling_tpu.utils import diagnostics as jdg
+from yade_openfoam_coupling_tpu_torch.convert import (
+    case_config_from,
+    state_from_numpy,
+    state_to_numpy,
+)
+from yade_openfoam_coupling_tpu_torch.models import coupled as tcd
+from yade_openfoam_coupling_tpu_torch.models import pimple as tpm
+from yade_openfoam_coupling_tpu_torch.models import piso as tps
+from yade_openfoam_coupling_tpu_torch.models import turbulence as ttb
+from yade_openfoam_coupling_tpu_torch.ops import coupling as tcp
+from yade_openfoam_coupling_tpu_torch.ops import dem as tdem
+from yade_openfoam_coupling_tpu_torch.ops import pressure as tpr
+from yade_openfoam_coupling_tpu_torch.utils import diagnostics as tdg
+
+REPO = Path(__file__).resolve().parents[1]
+
+CONFIG_PAIRS = {
+    "CouplingConfig": (jcp.CouplingConfig, tcp.CouplingConfig),
+    "DEMConfig": (jdem.DEMConfig, tdem.DEMConfig),
+    "ContactParams": (jdem.ContactParams, tdem.ContactParams),
+    "PressureSolverConfig": (jpr.PressureSolverConfig, tpr.PressureSolverConfig),
+    "MGConfig": (jpr.MGConfig, tpr.MGConfig),
+    "PIMPLEConfig": (jpm.PIMPLEConfig, tpm.PIMPLEConfig),
+    "PISOConfig": (jps.PISOConfig, tps.PISOConfig),
+    "TurbulenceConfig": (jtb.TurbulenceConfig, ttb.TurbulenceConfig),
+    "TimeControls": (jdg.TimeControls, tdg.TimeControls),
+    "TransportProperties": (jcd.TransportProperties, tcd.TransportProperties),
+    "CaseConfig": (jcd.CaseConfig, tcd.CaseConfig),
+}
+
+
+def _default(f):
+    if f.default is not dataclasses.MISSING:
+        return f.default
+    if f.default_factory is not dataclasses.MISSING:
+        return f.default_factory()
+    return dataclasses.MISSING
+
+
+def _plain(v):
+    """A config value reduced to plain data (nested dataclasses to dicts)."""
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return {f.name: _plain(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    if isinstance(v, tuple):
+        return tuple(_plain(x) for x in v)
+    return v
+
+
+@pytest.mark.parametrize("name", list(CONFIG_PAIRS))
+def test_config_fields_and_defaults_match(name):
+    ref_cls, port_cls = CONFIG_PAIRS[name]
+    ref = dataclasses.fields(ref_cls)
+    port = dataclasses.fields(port_cls)
+    assert [f.name for f in port] == [f.name for f in ref]
+    for fr, fp in zip(ref, port):
+        assert _plain(_default(fp)) == _plain(_default(fr)), fr.name
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port pulls in neither jax nor the JAX
+    package (checked in a fresh interpreter)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import yade_openfoam_coupling_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'yade_openfoam_coupling_tpu'\n"
+        "       or m.startswith('yade_openfoam_coupling_tpu.')]\n"
+        "n = sum(m.startswith('yade_openfoam_coupling_tpu_torch') for m in sys.modules)\n"
+        "print(n, bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 20
+
+
+def test_state_round_trip_exact():
+    grid = Grid.box((6, 5, 4), (0.006, 0.005, 0.004))
+    rng = np.random.RandomState(0)
+    ps = make_particle_state(pos=rng.uniform(0, 0.004, (7, 3)), radius=4e-4, capacity=9)
+    ps = ps._replace(nbr=np.arange(9 * 4, dtype=np.int32).reshape(9, 4),
+                     nbr_ref_pos=np.asarray(ps.pos) + 1.0)
+    fs = make_fluid_state(grid)
+    fs = fs._replace(u=rng.randn(3, 6, 5, 4).astype(np.float32), p_prev=fs.p)
+    state = SimState(fs, ps, make_turbulence_state(grid, k0=1e-6),
+                     t=np.float32(0.25), dt=np.float32(5e-5), step=np.int32(3))
+    tree = jax.tree.map(np.asarray, state)
+    port = state_from_numpy(tree, torch.device("cpu"))
+    assert port.particles.pos.dtype == torch.float32
+    assert port.particles.active.dtype == torch.bool
+    assert port.particles.pid.dtype == torch.int32
+    back = state_to_numpy(port)
+    leaves_ref, tdef_ref = jax.tree.flatten(tree)
+    leaves_out, tdef_out = jax.tree.flatten(
+        SimState(*[type(getattr(tree, k))(*v) if k in ("fluid", "particles", "turb") else v
+                   for k, v in back._asdict().items()]))
+    assert tdef_out == tdef_ref
+    for a, b in zip(leaves_out, leaves_ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_case_config_from_and_unported_options_raise():
+    cfg = jcd.CaseConfig(grid=Grid.cube(8, 0.008), bcs=jps.FluidBCs.channel_z(),
+                         solver="pimple",
+                         coupling=jcp.CouplingConfig(exchange="window", lag_alpha=True),
+                         dem=jdem.DEMConfig(neighbor="cells", periodic=(True, True, False)))
+    port = case_config_from(cfg)
+    assert isinstance(port, tcd.CaseConfig)
+    assert isinstance(port.dem.params, tdem.ContactParams)
+    assert _plain(port) == _plain(cfg)
+    for bad in (dataclasses.replace(port, solver="piso"),
+                dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="planes")),
+                dataclasses.replace(port, dem=tdem.DEMConfig(shear_history=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP A1[123]"):
+            tcd.make_scan_fn(bad, 1)

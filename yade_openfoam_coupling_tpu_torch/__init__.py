@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of the CFD-DEM engine in `yade_openfoam_coupling_tpu`.
+
+The package mirrors the JAX package's layout (`ops/`, `models/`,
+`parallel/`, `utils/`) module for module and keeps its public names, so each
+port function can be held against its JAX counterpart on the same inputs.
+It imports torch and numpy only, never jax.
+
+Plain tensor code is PyTorch; the one Pallas kernel on the main path
+(`coupling_window._window_kernel`) is a CUDA kernel written by hand for
+Hopper (`csrc/window_exchange.cu`), built at first use into `_build/`.
+"""
+
+import torch
+
+# The fftpcg preconditioner's six dense transform products must run in full
+# fp32: the JAX reference forces Precision.HIGHEST for them
+# (ops/pressure.py, make_spectral_preconditioner) because a reduced-precision
+# product leaves the "exact" inverse only ~1e-2 accurate and CG pays extra
+# iterations. TF32 keeps about three decimal digits, so it is switched off
+# for matmuls and for cuDNN alike.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

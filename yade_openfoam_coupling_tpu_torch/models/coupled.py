@@ -1,0 +1,308 @@
+"""The coupled CFD-DEM time step (port of the main path of
+`yade_openfoam_coupling_tpu/models/coupled.py`).
+
+One coupled step: Courant number and adaptive dt, the coupling inputs,
+the window exchange, the DEM substeps on the frozen Verlet list, the kEqn
+correction and the PIMPLE step, then the diagnostics. `make_scan_fn` runs
+chunks of [one Verlet-list rebuild -> K frozen-list steps] as a Python loop
+and stacks the per-step diagnostics along a leading axis.
+
+Not ported yet: the PISO solver (ROADMAP A13), the other exchanges and the
+point-force path (A12), the per-step conditional list rebuild, shear
+history and dynamic substeps (A11), obstacles (A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ..ops import coupling as cp
+from ..ops import dem as demod
+from ..ops import stencil as st
+from ..ops.coupling_window import gaussian_coupling_window
+from ..ops.grid import FieldBC, Grid
+from ..utils.diagnostics import (
+    TimeControls,
+    continuity_errors,
+    courant,
+    diffusive_dt_bound,
+    new_dt,
+)
+from . import turbulence as turb_mod
+from .fields import FluidState, ParticleState, SimState, StepDiagnostics, TurbulenceState
+from .pimple import PIMPLEConfig, pimple_step
+from .piso import FluidBCs, PISOConfig
+
+_NEU = FieldBC.uniform("neumann")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportProperties:
+    """`transportProperties`: nu, particle and fluid densities."""
+
+    nu: float = 1e-6
+    rho_f: float = 1000.0
+    rho_p: float = 2500.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CaseConfig:
+    """Full static configuration of a coupled case; same fields and
+    defaults as the JAX package's `CaseConfig`."""
+
+    grid: Grid
+    bcs: FluidBCs
+    transport: TransportProperties = TransportProperties()
+    solver: str = "piso"
+    coupling: cp.CouplingConfig = cp.CouplingConfig(gaussian=False)
+    dem: demod.DEMConfig = demod.DEMConfig()
+    piso: PISOConfig = PISOConfig()
+    pimple: PIMPLEConfig = PIMPLEConfig()
+    turbulence: turb_mod.TurbulenceConfig = turb_mod.TurbulenceConfig()
+    time: TimeControls = TimeControls()
+    n_dem_substeps: int = 10
+    r_max: float = 1e-3
+    gravity_fluid: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    sampled_diagnostics: bool = False
+    solid: object = dataclasses.field(default=None, compare=False)
+
+    def periodic_axes(self):
+        return self.bcs.periodic_axes()
+
+
+def _check_supported(cfg: CaseConfig) -> None:
+    """Raise for the configurations the port does not run yet."""
+    if cfg.solver != "pimple":
+        raise NotImplementedError(f"solver={cfg.solver!r}: not ported yet (ROADMAP A13)")
+    if cfg.solid is not None:
+        raise NotImplementedError("masked-cell obstacles: not ported yet (ROADMAP A13)")
+    c = cfg.coupling
+    if not c.gaussian or c.exchange != "window":
+        raise NotImplementedError(
+            f"coupling exchange={c.exchange!r} gaussian={c.gaussian}: "
+            "not ported yet (ROADMAP A12)")
+    d = cfg.dem
+    if d.shear_history or d.dynamic_substeps or d.enforce_critical_dt:
+        raise NotImplementedError(
+            "shear history / dynamic substeps / critical-dt clamp: "
+            "not ported yet (ROADMAP A11)")
+
+
+def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
+                     ctx, ccfg: cp.CouplingConfig):
+    """The derived grid fields the exchange consumes: grad p and the viscous
+    term 2 nu div(alpha_f grad u) (plus curl u / material acceleration when
+    torque / added mass are on)."""
+    up = ctx.pad_v(fs.u, bcs.u)
+    if ccfg.use_torque or not ccfg.gaussian:
+        curl_u = st.curl_from_grad(st.grad_vector_padded(up, grid))
+    else:
+        curl_u = fs.u  # placeholder, never gathered
+    grad_p = st.grad_scalar_padded(ctx.pad_s(fs.p, bcs.p), grid)
+    alpha_f = st.face_interp_all_padded(ctx.pad_s(fs.alpha, _NEU))
+    div_tau = 2.0 * nu * st.laplacian_gamma_vector_padded(alpha_f, up, grid)
+    if ccfg.use_added_mass:
+        conv = st.div_phi_vector_padded(fs.phi, up, grid)
+        ddt_u = (fs.u - fs.u_old) / dt + conv
+    else:
+        ddt_u = fs.u  # placeholder, never gathered
+    return curl_u, grad_p, div_tau, ddt_u
+
+
+def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
+             tp: TransportProperties, cfg: cp.CouplingConfig, dt,
+             ctx=None) -> cp.CouplingResult:
+    """One in-memory coupling exchange (`setParticleAction`); only the
+    window exchange is ported."""
+    from ..parallel.ctx import LOCAL
+    ctx = ctx if ctx is not None else LOCAL
+    if not cfg.gaussian or cfg.exchange != "window":
+        raise NotImplementedError(
+            f"coupling exchange={cfg.exchange!r} gaussian={cfg.gaussian}: "
+            "not ported yet (ROADMAP A12)")
+    curl_u, grad_p, div_tau, ddt_u = _coupling_inputs(fs, grid, bcs, tp.nu, dt, ctx, cfg)
+    pf = cp.ParticleFields(ps.pos, ps.vel, ps.angvel, ps.radius, ps.active)
+    return gaussian_coupling_window(
+        pf, fs.u, grad_p, div_tau, ddt_u, curl_u,
+        grid, bcs.periodic_axes(), tp.nu, tp.rho_f, dt, cfg,
+        prev_alpha=fs.alpha)
+
+
+def _rebuild(particles: ParticleState, cfg: CaseConfig) -> ParticleState:
+    """Fresh Verlet list; its reference positions are a copy of pos, never
+    an alias, so the staleness test reads the drift of later updates."""
+    nbr = demod.build_neighbor_list(particles.pos, particles.active, cfg.grid,
+                                    cfg.dem, cfg.r_max)
+    return particles._replace(nbr=nbr, nbr_ref_pos=particles.pos.clone())
+
+
+def initialize_state(fluid: FluidState, particles: ParticleState,
+                     turb: TurbulenceState, cfg: CaseConfig, dt: float,
+                     t0: float = 0.0) -> SimState:
+    """A self-consistent initial SimState: the first Verlet list and carried
+    contact force, and one exchange so that alpha and alpha_old reflect the
+    initial particles."""
+    _check_supported(cfg)
+    dev = fluid.p.device
+    dt_arr = torch.tensor(dt, dtype=torch.float32, device=dev)
+    if cfg.dem.list_reuse and particles.nbr is None:
+        if cfg.dem.neighbor != "cells":
+            raise ValueError("list_reuse requires neighbor='cells'")
+        particles = _rebuild(particles, cfg)
+    if cfg.dem.carry_contact and particles.contact_f is None:
+        if cfg.dem.contact_mode != "substep":
+            raise ValueError("carry_contact requires contact_mode='substep'")
+        fc0, tc0 = demod.contact_forces(
+            particles.pos, particles.vel, particles.angvel, particles.radius,
+            particles.active, cfg.grid, cfg.dem, cfg.r_max, nbr=particles.nbr)
+        particles = particles._replace(contact_f=fc0, contact_t=tc0)
+    cres = exchange(fluid, particles, cfg.grid, cfg.bcs, cfg.transport,
+                    cfg.coupling, dt_arr)
+    fluid = fluid._replace(alpha=cres.alpha, alpha_old=cres.alpha,
+                           u_particle=cres.u_particle)
+    if cfg.pimple.p_extrapolate != 0.0 and fluid.p_prev is None:
+        fluid = fluid._replace(p_prev=fluid.p)
+    return SimState(
+        fluid=fluid, particles=particles, turb=turb,
+        t=torch.tensor(t0, dtype=torch.float32, device=dev), dt=dt_arr,
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
+                 frozen_list: bool = False,
+                 lite_diag: bool = False) -> Tuple[SimState, StepDiagnostics]:
+    """Advance the coupled system one fluid time step. With a persistent
+    Verlet list only the frozen form runs (`make_scan_fn` rebuilds it per
+    chunk); particles that drifted past the skin margin since the rebuild
+    are counted as contact overflow."""
+    from ..parallel.ctx import LOCAL
+    ctx = ctx if ctx is not None else LOCAL
+    _check_supported(cfg)
+    grid, bcs, tp = cfg.grid, cfg.bcs, cfg.transport
+    fs, ps, tb = state.fluid, state.particles, state.turb
+    dev = fs.p.device
+    zero = torch.zeros((), dtype=fs.p.dtype, device=dev)
+    izero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    # 1. Courant + adaptive dt
+    if lite_diag and not cfg.time.adjust_time_step:
+        co_mean = co_max = zero
+    else:
+        co_mean, co_max = courant(fs.phi, grid, state.dt, ctx)
+    if cfg.time.adjust_time_step:
+        dt_diff = diffusive_dt_bound(grid, tp.nu, ctx.max(torch.amax(tb.nut)))
+        dt = new_dt(co_max, state.dt, cfg.time, dt_diff=dt_diff)
+    else:
+        dt = state.dt
+
+    # 2-3. coupling exchange
+    cres = exchange(fs, ps, grid, bcs, tp, cfg.coupling, dt, ctx)
+    fs = fs._replace(alpha=cres.alpha, alpha_old=fs.alpha, u_source=cres.u_source,
+                     u_source_drag=cres.u_source_drag, u_particle=cres.u_particle)
+
+    # 4. DEM substeps under the hydro force of this exchange
+    n_sub = cfg.n_dem_substeps
+    dt_dem = dt / n_sub
+    hydro = demod.DEMForces(cres.force, cres.torque)
+    nbr = None
+    n_list_overflow = izero
+    if cfg.dem.list_reuse:
+        if ps.nbr is None:
+            raise ValueError("initialize_state builds the first Verlet list")
+        if not frozen_list and cfg.dem.list_margin_factor >= 0:
+            raise NotImplementedError(
+                "per-step conditional Verlet rebuild: not ported yet "
+                "(ROADMAP A11); use make_scan_fn with list_rebuild_steps > 0")
+        bin_size = demod.effective_bin_size(grid, cfg.dem, cfg.r_max)
+        margin = cfg.dem.list_margin_factor * (bin_size - 2.0 * cfg.r_max)
+        nbr = ps.nbr
+        if frozen_list:
+            disp = demod.drift_since(ps.pos, ps.nbr_ref_pos, ps.active, grid,
+                                     cfg.dem.periodic)
+            n_list_overflow = torch.sum((disp >= margin).to(torch.int32))
+    if cfg.dem.carry_contact:
+        carried = None if ps.contact_f is None else (ps.contact_f, ps.contact_t)
+        pos, vel, angvel, n_overflow, fc, tc = demod.dem_substeps(
+            ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
+            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, carried=carried)
+        ps = ps._replace(contact_f=fc, contact_t=tc)
+    else:
+        pos, vel, angvel, n_overflow = demod.dem_substeps(
+            ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
+            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr)
+    n_overflow = n_overflow + n_list_overflow
+    ps = ps._replace(pos=pos, vel=vel, angvel=angvel)
+
+    # 5. fluid step
+    u_prev = fs.u
+    tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, cfg.turbulence, ctx=ctx)
+    g = torch.tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
+    fs2, info = pimple_step(fs, grid, bcs, tp.nu, tb2.nut, g, dt, cfg.pimple, ctx=ctx)
+    fs2 = fs2._replace(u_old=u_prev)
+    if fs.p_prev is not None:
+        fs2 = fs2._replace(p_prev=fs.p)
+
+    if lite_diag:
+        cont_local = cont_global = max_speed = zero
+    else:
+        cont_local, cont_global = continuity_errors(
+            fs2.phi, fs2.alpha, fs2.alpha_old, grid, dt, ctx)
+        max_speed = ctx.max(torch.amax(torch.where(
+            ps.active, demod._norm3(ps.vel), zero)))
+    diag = StepDiagnostics(
+        co_mean=co_mean,
+        co_max=co_max,
+        cont_err_local=cont_local,
+        cont_err_global=cont_global,
+        p_iters=info.iters,
+        p_initial_residual=info.initial_residual,
+        p_final_residual=info.final_residual,
+        n_found=ctx.sum(torch.sum(cres.found.to(torch.int32))),
+        max_particle_speed=max_speed,
+        n_contact_overflow=ctx.sum(n_overflow).to(torch.int32),
+        n_coupling_overflow=ctx.sum(cres.n_overflow).to(torch.int32),
+        n_shard_overflow=izero,
+        n_dem_sub=torch.tensor(n_sub, dtype=torch.int32, device=dev),
+    )
+    new_state = SimState(fluid=fs2, particles=ps, turb=tb2, t=state.t + dt,
+                         dt=dt, step=state.step + 1)
+    return new_state, diag
+
+
+def _stack_diags(diags) -> StepDiagnostics:
+    return StepDiagnostics(*[torch.stack(list(xs)) for xs in zip(*diags)])
+
+
+def make_scan_fn(cfg: CaseConfig, n_steps: int, donate: bool = False):
+    """A callable running n_steps coupled steps: state -> (state, diags),
+    the diagnostics stacked along a leading step axis. With
+    ``dem.list_rebuild_steps = K > 0`` and ``list_reuse`` the steps run in
+    chunks of [one Verlet-list rebuild -> K frozen-list steps]. ``donate``
+    has no counterpart in eager PyTorch and is accepted and ignored."""
+    _check_supported(cfg)
+    K = cfg.dem.list_rebuild_steps
+    chunked = cfg.dem.list_reuse and K > 0 and cfg.dem.neighbor == "cells"
+    if chunked:
+        n_chunks, rem = divmod(n_steps, K)
+        sizes = [K] * n_chunks + ([rem] if rem else [])
+    else:
+        sizes = [n_steps]
+
+    def run(state: SimState):
+        diags = []
+        for sz in sizes:
+            if chunked:
+                state = state._replace(particles=_rebuild(state.particles, cfg))
+            for j in range(sz):
+                lite = (chunked and cfg.sampled_diagnostics and sz > 1
+                        and j < sz - 1)
+                state, d = coupled_step(state, cfg, frozen_list=chunked,
+                                        lite_diag=lite)
+                diags.append(d)
+        return state, _stack_diags(diags)
+
+    return run

@@ -1,0 +1,503 @@
+"""Discrete-element engine (port of the main path of
+`yade_openfoam_coupling_tpu/ops/dem.py`): linear spring-dashpot contacts
+with Coulomb-capped viscous friction, a persistent Verlet candidate list
+built from uniform hash bins, wall contacts against the box faces, and
+velocity-Verlet substeps with the contact force carried across calls.
+
+Not ported yet (ROADMAP A11): `allpairs` and `cell_list_contact_forces`,
+shear history, dynamic substeps, `contact_mode="step"`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .grid import Grid
+
+_A11 = "not ported yet (ROADMAP A11)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ContactParams:
+    """Linear spring-dashpot contact model parameters (Yade FrictMat-style)."""
+
+    kn: float = 1.0e4
+    kt_over_kn: float = 0.5
+    restitution: float = 0.5
+    friction: float = 0.5
+    rho_p: float = 2500.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DEMConfig:
+    """Same fields and defaults as the JAX package's `DEMConfig` (see its
+    field comments). ``dense_rolls``, ``sorted_fetch``, ``force_chunks``,
+    ``substep_unroll``, ``gather_barrier`` and ``pair_layout`` schedule or
+    lay out the same arithmetic in the JAX package; the port takes one
+    path for every setting."""
+
+    params: ContactParams = ContactParams()
+    gravity: tuple[float, float, float] = (0.0, 0.0, -9.81)
+    buoyancy: bool = False
+    rho_f: float = 1000.0
+    neighbor: str = "allpairs"
+    cell_capacity: int = 8
+    contact_mode: str = "substep"
+    max_neighbors: int = 12
+    skin: float = 0.5
+    list_rebuild_every: int = 0
+    list_reuse: bool = False
+    list_margin_factor: float = 0.5
+    list_rebuild_steps: int = 0
+    max_bins: int = 2_000_000
+    dense_rolls: bool = True
+    force_chunks: int = 1
+    carry_contact: bool = False
+    sorted_fetch: bool = False
+    refined_neighbors: int = 0
+    wall_axes: tuple[bool, bool, bool] = (True, True, True)
+    periodic: tuple[bool, bool, bool] = (False, False, False)
+    shear_history: bool = False
+    enforce_critical_dt: bool = False
+    dynamic_substeps: bool = False
+    cundall_damping: float = 0.0
+    substep_unroll: bool = False
+    gather_barrier: bool = False
+    pair_layout: str = "rows"
+
+    def __post_init__(self):
+        if self.pair_layout not in ("rows", "channels"):
+            raise ValueError(f"unknown pair_layout {self.pair_layout!r}: "
+                             "expected 'rows' or 'channels'")
+
+
+def rank_in_sorted_segments(keys_sorted: torch.Tensor) -> torch.Tensor:
+    """rank[i] = i - (first index of keys_sorted[i]'s run), for an
+    ascending key array: a cummax scan over segment-start indices."""
+    n = keys_sorted.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=keys_sorted.device)
+    is_new = torch.ones(n, dtype=torch.bool, device=keys_sorted.device)
+    is_new[1:] = keys_sorted[1:] != keys_sorted[:-1]
+    seg_start = torch.cummax(torch.where(is_new, idx, 0), dim=0).values
+    return idx - seg_start
+
+
+def particle_mass(radius: torch.Tensor, rho_p: float) -> torch.Tensor:
+    return rho_p * (4.0 / 3.0) * math.pi * radius ** 3
+
+
+def particle_inertia(radius: torch.Tensor, rho_p: float) -> torch.Tensor:
+    """Solid-sphere moment of inertia 2/5 m r^2."""
+    return 0.4 * particle_mass(radius, rho_p) * radius ** 2
+
+
+def _normal_damping(kn: float, m_eff: torch.Tensor, restitution: float) -> torch.Tensor:
+    """Dashpot coefficient from restitution e: c = -2 ln e sqrt(kn m)/sqrt(pi^2+ln^2 e)."""
+    e = max(min(restitution, 0.999), 1e-4)
+    ln_e = np.log(e)
+    beta = float(-ln_e / np.sqrt(np.pi ** 2 + ln_e ** 2))
+    return 2.0 * beta * torch.sqrt(kn * m_eff)
+
+
+def _cross_cm(a, b):
+    """Cross product on component triples (each component any shape)."""
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3) cross product, component formula of `jnp.cross`."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _norm3(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]
+                      + x[..., 2] * x[..., 2])
+
+
+def _pair_force_cm(dx, vi, vj, wi, wj, ri, rj, mi, mj,
+                   p: ContactParams, valid):
+    """Pair force and torque on particle i from j in channel-major form:
+    every vector argument is an (x, y, z) tuple of (M, n) component
+    arrays."""
+    dist = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
+    overlap = ri + rj - dist
+    touching = valid & (overlap > 0.0) & (dist > 1e-12)
+    dist_safe = torch.where(dist > 1e-12, dist, torch.ones_like(dist))
+    n = tuple(c / dist_safe for c in dx)                # from j toward i
+
+    ci = tuple(-ri * c for c in n)
+    cj = tuple(rj * c for c in n)
+    v_rel = tuple((vi[k] + wxci) - (vj[k] + wxcj)
+                  for k, (wxci, wxcj) in enumerate(
+                      zip(_cross_cm(wi, ci), _cross_cm(wj, cj))))
+    v_n = v_rel[0] * n[0] + v_rel[1] * n[1] + v_rel[2] * n[2]
+    v_t = tuple(v_rel[k] - v_n * n[k] for k in range(3))
+
+    m_eff = (mi * mj) / torch.clamp(mi + mj, min=1e-30)
+    cn = _normal_damping(p.kn, m_eff, p.restitution)
+
+    f_n_mag = torch.clamp(p.kn * overlap - cn * v_n, min=0.0)
+    f_n = tuple(f_n_mag * c for c in n)
+
+    kt = p.kt_over_kn * p.kn
+    ct = 2.0 * 0.5 * torch.sqrt(kt * m_eff)
+    f_t = tuple(-ct * c for c in v_t)
+    f_t_mag = torch.sqrt(f_t[0] * f_t[0] + f_t[1] * f_t[1] + f_t[2] * f_t[2])
+    cap = p.friction * f_n_mag
+    scale = torch.where(f_t_mag > 1e-30,
+                        torch.clamp(cap / torch.clamp(f_t_mag, min=1e-30), max=1.0),
+                        torch.zeros_like(f_t_mag))
+    f_t = tuple(c * scale for c in f_t)
+
+    zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    f = tuple(torch.where(touching, f_n[k] + f_t[k], zero) for k in range(3))
+    torque = tuple(torch.where(touching, c, zero) for c in _cross_cm(ci, f_t))
+    return f, torque
+
+
+def _min_image(dx: torch.Tensor, grid: Grid, periodic) -> torch.Tensor:
+    L = torch.tensor(grid.lengths, dtype=dx.dtype, device=dx.device)
+    per = torch.tensor(periodic, device=dx.device)
+    wrapped = dx - L * torch.round(dx / L)
+    return torch.where(per, wrapped, dx)
+
+
+def _float_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Floating modulo with the sign of the divisor, computed as
+    `jnp.mod` does (truncated remainder, then shifted by y)."""
+    r = torch.fmod(x, y)
+    shift = ((r < 0) != (y < 0)) & (r != 0)
+    return torch.where(shift, r + y, r)
+
+
+def _check_periodic_bins(dims, cfg: DEMConfig) -> None:
+    """Fewer than 3 bins on a periodic axis would alias neighbour bins and
+    double-count contacts."""
+    for a in range(3):
+        if cfg.periodic[a] and dims[a] < 3:
+            raise ValueError(
+                f"periodic axis {a} has only {dims[a]} DEM hash bins "
+                f"(domain < 6*r_max*(1+skin)): neighbor bins would alias and "
+                f"double-count contacts.")
+
+
+# ---------------------------------------------------------------------------
+# Verlet neighbor lists
+# ---------------------------------------------------------------------------
+
+def drift_since(pos, ref_pos, active, grid: Grid, periodic) -> torch.Tensor:
+    """(N,) max-norm per-particle displacement since ``ref_pos``, with the
+    minimum-image distance on periodic axes."""
+    d = torch.abs(pos - ref_pos)
+    comps = []
+    for a in range(3):
+        da = d[:, a]
+        if periodic[a]:
+            da = torch.minimum(da, grid.lengths[a] - da)
+        comps.append(da)
+    d = torch.stack(comps, dim=-1)
+    return torch.where(active, torch.amax(d, dim=-1), torch.zeros((), dtype=d.dtype, device=d.device))
+
+
+def effective_bin_size(grid: Grid, cfg: DEMConfig, r_max: float) -> float:
+    """The hash-bin size `build_neighbor_list` uses: 2*r_max*(1+skin),
+    enlarged when the bin count would exceed `max_bins`."""
+    bin_size = 2.0 * r_max * (1.0 + cfg.skin)
+    vol = grid.lengths[0] * grid.lengths[1] * grid.lengths[2]
+    if vol / bin_size ** 3 > cfg.max_bins:
+        bin_size = float(np.cbrt(vol / cfg.max_bins))
+    return bin_size
+
+
+_HIGH = 1 << 21   # composite top_k key: validity bit above the particle id
+
+
+def _compact(key: torch.Tensor, M: int, N: int) -> torch.Tensor:
+    """Keep the M largest composite keys (valid ids first, descending id)
+    and decode them: the `lax.top_k` compaction of the JAX package."""
+    top = torch.topk(key, M, dim=1, largest=True, sorted=True).values
+    return torch.where(top >= _HIGH, top - _HIGH, torch.full_like(top, N))
+
+
+def build_neighbor_list(pos, active, grid: Grid, cfg: DEMConfig, r_max: float,
+                        return_overflow: bool = False):
+    """(N, max_neighbors) int32 candidate indices (N = empty slot), and with
+    ``return_overflow`` an int32 count of dropped candidates: particles
+    beyond ``cell_capacity`` in their bin plus candidates truncated by the
+    ``max_neighbors`` (and ``refined_neighbors``) compaction.
+
+    One path: a (nbin, 27 * cap) candidate table built from 27 rolls of the
+    bin table, walked in bin-sorted order, compacted by top_k on the key
+    id + 2^21 so that the largest valid ids survive in descending order."""
+    N = pos.shape[0]
+    cap = cfg.cell_capacity
+    M = cfg.max_neighbors
+    if N >= _HIGH:
+        raise ValueError("top_k composite key supports < 2M particles")
+    dev = pos.device
+    bin_size = effective_bin_size(grid, cfg, r_max)
+    dims, sizes = [], []
+    for a in range(3):
+        L = grid.lengths[a]
+        n = max(1, int(np.floor(L / max(bin_size, 1e-12))))
+        dims.append(n)
+        sizes.append(L / n)
+    _check_periodic_bins(dims, cfg)
+    bx, by, bz = dims
+    nbin = bx * by * bz
+
+    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=dev)
+    csz = torch.tensor(sizes, dtype=pos.dtype, device=dev)
+    nvec = torch.tensor(dims, dtype=torch.int32, device=dev)
+    ijk = torch.floor((pos - origin) / csz).to(torch.int32)
+    ijk = torch.minimum(torch.clamp(ijk, min=0), nvec - 1)
+    bin_of = ijk[:, 0] * (by * bz) + ijk[:, 1] * bz + ijk[:, 2]
+    bin_of = torch.where(active, bin_of, nbin)
+
+    order = torch.argsort(bin_of, stable=True)
+    bin_sorted = bin_of[order]
+    rank = rank_in_sorted_segments(bin_sorted)
+    keep = rank < cap
+    n_bin_drop = torch.sum(((rank >= cap) & (bin_sorted < nbin)).to(torch.int32))
+
+    # bin-major flat slot table (bin*cap + rank), N = empty
+    slot = torch.clamp(bin_sorted, 0, nbin).to(torch.int64) * cap \
+        + torch.clamp(rank, max=cap - 1).to(torch.int64)
+    table_flat = torch.full(((nbin + 1) * cap,), N, dtype=torch.int32, device=dev)
+    table_flat[torch.where(keep, slot, (nbin + 1) * cap - 1)] = torch.where(
+        keep, order.to(torch.int32), N)
+
+    # 27 rolls of the bin table (cap fused into the z axis) -> one candidate
+    # row of 27 * cap ids per bin
+    offs = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
+                                indexing="ij"), -1).reshape(-1, 3)
+    tbl = table_flat[: nbin * cap].reshape(bx, by, bz * cap)
+    cand_rows = torch.stack([
+        torch.roll(tbl, (-int(o[0]), -int(o[1]), -int(o[2]) * cap),
+                   dims=(0, 1, 2)).reshape(-1)
+        for o in offs
+    ]).T.reshape(nbin, cap * 27)
+
+    act_s = active[order]
+    self_s = order.to(torch.int32)[:, None]
+    cand_s = cand_rows[torch.clamp(bin_sorted, max=nbin - 1).to(torch.int64)]
+    valid = (cand_s != N) & (cand_s != self_s) & act_s[:, None]
+    nbr_s = _compact(torch.where(valid, cand_s + _HIGH, 0), M, N)
+    trunc = torch.sum(torch.clamp(torch.sum(valid.to(torch.int32), dim=1) - M, min=0))
+
+    if 0 < cfg.refined_neighbors < M:
+        if not cfg.list_margin_factor > 0:
+            raise ValueError("refined_neighbors needs the Verlet-skin margin "
+                             "(list_margin_factor > 0)")
+        # keep only candidates reachable before the next rebuild
+        margin = cfg.list_margin_factor * (bin_size - 2.0 * r_max)
+        cutoff = 2.0 * r_max + 2.0 * margin
+        Mr = cfg.refined_neighbors
+        posx = torch.cat([pos, torch.zeros((1, 3), dtype=pos.dtype, device=dev)])
+        dxp = pos[order][:, None, :] - posx[nbr_s.to(torch.int64)]
+        dxp = _min_image(dxp, grid, cfg.periodic)
+        d2 = dxp[..., 0] * dxp[..., 0] + dxp[..., 1] * dxp[..., 1] + dxp[..., 2] * dxp[..., 2]
+        within = (nbr_s != N) & (d2 <= cutoff * cutoff)
+        nbr_s = _compact(torch.where(within, nbr_s + _HIGH, 0), Mr, N)
+        trunc = trunc + torch.sum(torch.clamp(
+            torch.sum(within.to(torch.int32), dim=1) - Mr, min=0))
+
+    nbr = nbr_s[torch.argsort(order, stable=True)]
+    if return_overflow:
+        return nbr, (n_bin_drop + trunc).to(torch.int32)
+    return nbr
+
+
+def neighbor_contact_forces(nbr, pos, vel, angvel, radius, active, grid: Grid,
+                            cfg: DEMConfig, xi=None, dt=None):
+    """Pair forces against a fixed candidate list: one 11-channel row
+    gather of N * M rows, transposed once to (11, M, N) so that every pair
+    formula runs on (M, N) component arrays."""
+    if xi is not None:
+        raise NotImplementedError(f"shear history: {_A11}")
+    N = pos.shape[0]
+    p = cfg.params
+    data = torch.cat([pos, vel, angvel, radius[:, None],
+                      active.to(pos.dtype)[:, None]], dim=-1)
+    data = torch.cat([data, torch.zeros((1, 11), dtype=data.dtype, device=data.device)])
+    djT = data[nbr.to(torch.int64)].permute(2, 1, 0)   # (11, M, N)
+    pos_j = (djT[0], djT[1], djT[2])
+    vel_j = (djT[3], djT[4], djT[5])
+    ang_j = (djT[6], djT[7], djT[8])
+    rad_j, act_j = djT[9], djT[10] > 0.5
+    m_j = particle_mass(torch.clamp(rad_j, min=1e-12), p.rho_p)
+    m_b = particle_mass(radius, p.rho_p)
+    valid = act_j & active[None, :] & (nbr.T != N)
+    L = grid.lengths
+    dx = []
+    for c in range(3):
+        d = pos[:, c][None, :] - pos_j[c]
+        if cfg.periodic[c]:
+            d = d - L[c] * torch.round(d / L[c])
+        dx.append(d)
+    f, t = _pair_force_cm(
+        tuple(dx),
+        tuple(vel[:, c][None, :] for c in range(3)), vel_j,
+        tuple(angvel[:, c][None, :] for c in range(3)), ang_j,
+        radius[None, :], rad_j,
+        m_b[None, :], m_j,
+        p, valid,
+    )
+    fs = torch.stack([torch.sum(c, dim=0) for c in f], dim=-1)
+    ts = torch.stack([torch.sum(c, dim=0) for c in t], dim=-1)
+    return fs, ts
+
+
+def wall_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
+                        cfg: DEMConfig, xi_wall=None, dt=None):
+    """Contacts with the domain box faces on non-periodic wall axes
+    (spring-dashpot + Coulomb friction against infinite-mass planes)."""
+    if xi_wall is not None:
+        raise NotImplementedError(f"shear history: {_A11}")
+    p = cfg.params
+    dev, dt_ = pos.device, pos.dtype
+    m = particle_mass(radius, p.rho_p)
+    cn = _normal_damping(p.kn, m, p.restitution)            # m_eff = m (wall)
+    kt = p.kt_over_kn * p.kn
+    ct = torch.sqrt(kt * m)
+    lo = torch.tensor(grid.origin, dtype=dt_, device=dev)
+    hi = torch.tensor(grid.upper, dtype=dt_, device=dev)
+    zero = torch.zeros((), dtype=dt_, device=dev)
+
+    f_total = torch.zeros_like(pos)
+    t_total = torch.zeros_like(pos)
+    for axis in range(3):
+        if not cfg.wall_axes[axis] or cfg.periodic[axis]:
+            continue
+        x = pos[:, axis]
+        gap_lo = x - lo[axis]
+        gap_hi = hi[axis] - x
+        at_lo = gap_lo <= gap_hi
+        gap = torch.where(at_lo, gap_lo, gap_hi)
+        sgn = torch.where(at_lo, 1.0, -1.0).to(dt_)
+        overlap = radius - gap
+        touching = active & (overlap > 0.0)
+
+        v_n = sgn * vel[:, axis]
+        f_n_mag = torch.clamp(p.kn * overlap - cn * v_n, min=0.0)
+        f_n_mag = torch.where(touching, f_n_mag, zero)
+
+        e = torch.zeros((1, 3), dtype=dt_, device=dev)
+        e[0, axis] = 1.0
+        n_vec = e * sgn[:, None]
+        c_vec = -radius[:, None] * n_vec
+        v_surf = vel + _cross(angvel, c_vec)
+        v_t = v_surf - (torch.sum(v_surf * n_vec, -1))[:, None] * n_vec
+        cap = p.friction * f_n_mag
+        f_t = -ct[:, None] * v_t
+        f_t_mag = _norm3(f_t)
+        scale = torch.where(
+            f_t_mag > 1e-30,
+            torch.clamp(cap / torch.clamp(f_t_mag, min=1e-30), max=1.0), zero)
+        f_t = f_t * torch.where(touching, scale, zero)[:, None]
+
+        f_total = f_total + (f_n_mag[:, None] * n_vec + f_t)
+        t_total = t_total + _cross(c_vec, f_t)
+    return f_total, t_total
+
+
+# ---------------------------------------------------------------------------
+# Integration
+# ---------------------------------------------------------------------------
+
+class DEMForces(NamedTuple):
+    force: torch.Tensor    # (N,3) external (hydro) force, constant over substeps
+    torque: torch.Tensor   # (N,3)
+
+
+def contact_forces(pos, vel, angvel, radius, active, grid, cfg: DEMConfig,
+                   r_max: float, nbr=None):
+    if nbr is None:
+        raise NotImplementedError(
+            f"contact forces without a Verlet list ({cfg.neighbor!r}): {_A11}")
+    fc, tc = neighbor_contact_forces(nbr, pos, vel, angvel, radius, active, grid, cfg)
+    fw, tw = wall_contact_forces(pos, vel, angvel, radius, active, grid, cfg)
+    return fc + fw, tc + tw
+
+
+def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
+                 grid: Grid, cfg: DEMConfig, dt_dem, n_sub: int, r_max: float,
+                 shear=None, pid=None, nbr=None,
+                 carried: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 dt_seq=None):
+    """Advance the DEM state n_sub velocity-Verlet substeps under a constant
+    hydro force against the prebuilt Verlet list ``nbr``. Returns (pos, vel,
+    angvel, n_overflow) with n_overflow 0 (the build that produced the list
+    counted its own drops), plus the contact force/torque of the last
+    evaluation under ``cfg.carry_contact`` (the ``carried`` input of the
+    next call)."""
+    if cfg.shear_history or shear is not None:
+        raise NotImplementedError(f"shear history: {_A11}")
+    if dt_seq is not None:
+        raise NotImplementedError(f"dynamic substeps: {_A11}")
+    if cfg.contact_mode != "substep":
+        raise NotImplementedError(f"contact_mode={cfg.contact_mode!r}: {_A11}")
+    if nbr is None:
+        raise NotImplementedError(f"substeps without a prebuilt Verlet list: {_A11}")
+    p = cfg.params
+    dev = pos.device
+    m = particle_mass(radius, p.rho_p)
+    inertia = particle_inertia(radius, p.rho_p)
+    g = torch.tensor(cfg.gravity, dtype=pos.dtype, device=dev)
+    vol = (4.0 / 3.0) * math.pi * radius ** 3
+    f_grav = m[:, None] * g[None, :]
+    if cfg.buoyancy:
+        f_grav = f_grav - cfg.rho_f * vol[:, None] * g[None, :]
+    zero = torch.zeros((), dtype=pos.dtype, device=dev)
+    inv_m = torch.where(active, 1.0 / m, zero)[:, None]
+    inv_I = torch.where(active, 1.0 / inertia, zero)[:, None]
+    lo = torch.tensor(grid.origin, dtype=pos.dtype, device=dev)
+    L = torch.tensor(grid.lengths, dtype=pos.dtype, device=dev)
+    per = torch.tensor(cfg.periodic, device=dev)
+
+    def damp(f, v):
+        # Cundall non-viscous damping (Yade NewtonIntegrator::damping)
+        d = cfg.cundall_damping
+        if d == 0.0:
+            return f
+        return f * (1.0 - d * torch.sign(f * v))
+
+    def accel(pos_, vel_, ang_):
+        return contact_forces(pos_, vel_, ang_, radius, active, grid, cfg, r_max, nbr)
+
+    carry_c = cfg.carry_contact
+    # a0 from the carried contact force (no evaluation) or from a fresh one
+    fc, tc = carried if carry_c and carried is not None else accel(pos, vel, angvel)
+    a = damp(fc + f_grav + hydro.force, vel) * inv_m
+    aw = damp(tc + hydro.torque, angvel) * inv_I
+    for _ in range(n_sub):
+        vel_h = vel + 0.5 * dt_dem * a
+        angvel_h = angvel + 0.5 * dt_dem * aw
+        pos_n = pos + dt_dem * vel_h
+        pos_n = torch.where(per, lo + _float_mod(pos_n - lo, L), pos_n)
+        fc, tc = accel(pos_n, vel_h, angvel_h)
+        a = damp(fc + f_grav + hydro.force, vel_h) * inv_m
+        aw = damp(tc + hydro.torque, angvel_h) * inv_I
+        pos = pos_n
+        vel = vel_h + 0.5 * dt_dem * a
+        angvel = angvel_h + 0.5 * dt_dem * aw
+    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if carry_c:
+        return pos, vel, angvel, n_overflow, fc, tc
+    return pos, vel, angvel, n_overflow
+
+
+def critical_dt(radius_min: float, params: ContactParams) -> float:
+    """Rayleigh-style critical DEM time step: dt_c ~ sqrt(m_min/kn) * safety."""
+    m_min = float(params.rho_p * (4.0 / 3.0) * np.pi * radius_min ** 3)
+    return 0.2 * float(np.sqrt(m_min / params.kn))

@@ -1,0 +1,281 @@
+"""Matrix-free pressure solve (port of the main-path part of
+`yade_openfoam_coupling_tpu/ops/pressure.py`): the variable-coefficient
+Poisson operator, preconditioned CG with the JAX package's convergence,
+breakdown and divergence tests, and the spectral ("fftpcg")
+preconditioner — the exact inverse of the mean-coefficient operator as six
+dense transform products.
+
+CG's data-dependent exit is a host-side loop: the residual test reads one
+scalar per iteration (one device sync). The other solvers (``"pcg"``, ``"mgpcg"``),
+``fixed_iters`` and the masked (obstacle) solve are not ported yet
+(ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .grid import DIRICHLET, NEUMANN, PERIODIC, FieldBC, Grid, pad_scalar
+from .stencil import Flux, laplacian_facegamma_padded
+
+_A13 = "not ported yet (ROADMAP A13)"
+
+
+def default_pad(bc: FieldBC):
+    return lambda f: pad_scalar(f, bc)
+
+
+def _ident(x):
+    return x
+
+
+def poisson_apply(p: torch.Tensor, gamma_f: Flux, grid: Grid, pad,
+                  use_pallas: bool = False) -> torch.Tensor:
+    """A(p) = div(gamma_f grad p). ``use_pallas`` selects the same operator
+    as a fused kernel in the JAX package; it changes nothing here."""
+    return laplacian_facegamma_padded(gamma_f, pad(p), grid)
+
+
+def poisson_diag(gamma_f: Flux, grid: Grid, bc: Optional[FieldBC] = None) -> torch.Tensor:
+    """Diagonal of the variable-coefficient Laplacian; at physical
+    boundaries Neumann removes the face and Dirichlet doubles it."""
+    nx = gamma_f[0].shape[0] - 1
+    ny = gamma_f[1].shape[1] - 1
+    nz = gamma_f[2].shape[2] - 1
+    diag = torch.zeros((nx, ny, nz), dtype=gamma_f[0].dtype, device=gamma_f[0].device)
+    for axis in range(3):
+        g = gamma_f[axis]
+        n = g.shape[axis]
+        g_hi = g.narrow(axis, 1, n - 1)
+        g_lo = g.narrow(axis, 0, n - 1)
+        c_lo = torch.ones_like(g_lo)
+        c_hi = torch.ones_like(g_hi)
+        if bc is not None and not bc.is_periodic(axis):
+            lo_bc, hi_bc = bc.faces[axis]
+            factor = {NEUMANN: 0.0, DIRICHLET: 2.0}
+            c_lo.narrow(axis, 0, 1).fill_(factor.get(lo_bc.kind, 1.0))
+            c_hi.narrow(axis, n - 2, 1).fill_(factor.get(hi_bc.kind, 1.0))
+        diag = diag - (c_lo * g_lo + c_hi * g_hi) / (grid.spacing[axis] ** 2)
+    return diag
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    iters: torch.Tensor          # int32
+    residual: torch.Tensor       # final |r|_2
+    initial_residual: torch.Tensor
+
+
+def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+        x0: torch.Tensor, *, precond=None, reduce_sum=_ident, tol: float = 1e-6,
+        atol: float = 1e-30, rel_tol: float = 0.0, maxiter: int = 500) -> CGResult:
+    """Preconditioned CG with the JAX package's tests: converged when
+    |r| <= tol * max(|r0|, |b|), |r| <= atol or |r| <= rel_tol * |r0|;
+    stops on breakdown (pAp >= 0 for the negative semi-definite operator)
+    and on divergence (|r| > 4x the best seen). The exit test reads one
+    scalar per iteration on the host."""
+    M = precond if precond is not None else (lambda r: r)
+
+    def gdot(a, bb):
+        return reduce_sum(torch.sum(a * bb))
+
+    r0 = b - apply_A(x0)
+    z0 = M(r0)
+    rz0 = gdot(r0, z0)
+    rnorm0 = torch.sqrt(gdot(r0, r0))
+    bnorm = torch.sqrt(gdot(b, b))
+    ref = torch.maximum(rnorm0, bnorm)
+    # f32 cannot realize relative residuals much below machine epsilon
+    tol = max(tol, 3e-7) if b.dtype == torch.float32 else tol
+
+    def converged(rnorm):
+        ok = (rnorm <= tol * ref) | (rnorm <= atol)
+        if rel_tol > 0.0:
+            ok = ok | (rnorm <= rel_tol * rnorm0)
+        return ok
+
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    x, r, p, rz, rnorm, best = x0, r0, z0, rz0, rnorm0, rnorm0
+    it = 0
+    done = bool(converged(rnorm0))
+    while it < maxiter and not done:
+        it += 1
+        Ap = apply_A(p)
+        pAp = gdot(p, Ap)
+        breakdown = pAp >= -1e-30 * torch.clamp(gdot(p, p), min=1e-30)
+        alpha = torch.where(breakdown, zero, rz / torch.where(pAp == 0.0, one, pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = gdot(r, z)
+        beta = torch.where(breakdown, zero, rz_new / torch.where(rz == 0.0, one, rz))
+        p = z + beta * p
+        rz = rz_new
+        rnorm = torch.sqrt(gdot(r, r))
+        diverging = rnorm > 4.0 * best
+        best = torch.minimum(best, rnorm)
+        done = bool(converged(rnorm) | breakdown | diverging)
+    iters = torch.tensor(it, dtype=torch.int32, device=b.device)
+    return CGResult(x, iters, rnorm, rnorm0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MGConfig:
+    """Multigrid V-cycle settings (config only in the port: ``mgpcg`` is
+    not ported yet, ROADMAP A13)."""
+
+    levels: int = 0
+    pre_smooth: int = 2
+    post_smooth: int = 2
+    coarse_iters: int = 20
+    omega: float = 0.8
+    smoother: str = "jacobi"
+    cheby_frac: float = 4.0
+    bf16: bool = False
+
+
+def _spectral_axis_basis(n: int, lo_kind: str, hi_kind: str, h: float):
+    """Orthonormal eigenbasis Q (n, n) and eigenvalues lam (n,) of the 1-D
+    cell-centred second difference under the ghost-cell BC convention of
+    `pad_scalar` (the DCT/DST family on half-integer nodes). Built in
+    float64 with numpy; returned as float32 arrays, or None when the BC
+    pair has no trigonometric basis."""
+    j = np.arange(n, dtype=np.float64)
+    k = np.arange(n, dtype=np.float64)
+    periodic = lo_kind == PERIODIC and hi_kind == PERIODIC
+    neu = (NEUMANN,)
+    if periodic:
+        cols = [np.full(n, 1.0 / np.sqrt(n))]
+        lams = [0.0]
+        for kk in range(1, (n - 1) // 2 + 1):
+            t = 2.0 * np.pi * kk * j / n
+            cols.append(np.cos(t) * np.sqrt(2.0 / n))
+            cols.append(np.sin(t) * np.sqrt(2.0 / n))
+            lams += [(2.0 * np.cos(2.0 * np.pi * kk / n) - 2.0) / h**2] * 2
+        if n % 2 == 0:
+            cols.append(np.cos(np.pi * j) / np.sqrt(n))
+            lams.append(-4.0 / h**2)
+        Q = np.stack(cols, axis=1)
+        lam = np.asarray(lams)
+    elif lo_kind in neu and hi_kind in neu:
+        Q = np.cos(np.pi * k[None, :] * (j[:, None] + 0.5) / n)
+        lam = (2.0 * np.cos(np.pi * k / n) - 2.0) / h**2
+    elif lo_kind == DIRICHLET and hi_kind == DIRICHLET:
+        Q = np.sin(np.pi * (k[None, :] + 1.0) * (j[:, None] + 0.5) / n)
+        lam = (2.0 * np.cos(np.pi * (k + 1.0) / n) - 2.0) / h**2
+    elif lo_kind in neu and hi_kind == DIRICHLET:
+        Q = np.cos(np.pi * (k[None, :] + 0.5) * (j[:, None] + 0.5) / n)
+        lam = (2.0 * np.cos(np.pi * (k + 0.5) / n) - 2.0) / h**2
+    elif lo_kind == DIRICHLET and hi_kind in neu:
+        Q = np.sin(np.pi * (k[None, :] + 0.5) * (j[:, None] + 0.5) / n)
+        lam = (2.0 * np.cos(np.pi * (k + 0.5) / n) - 2.0) / h**2
+    else:
+        return None
+    Q = Q / np.linalg.norm(Q, axis=0, keepdims=True)
+    return Q.astype(np.float32), lam.astype(np.float32)
+
+
+def make_spectral_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
+                                 nullspace_eps: float = 1e-12):
+    """Exact inverse of the mean-coefficient Poisson operator: forward
+    transform per axis, divide by the eigenvalues, inverse transform — six
+    dense (n, n) products in full fp32. None when an axis BC pair has no
+    trigonometric eigenbasis."""
+    bases = []
+    for axis in range(3):
+        lo, hi = bc.faces[axis]
+        qa = _spectral_axis_basis(grid.shape[axis], lo.kind, hi.kind,
+                                  grid.spacing[axis])
+        if qa is None:
+            return None
+        bases.append(qa)
+
+    dev = gamma_f[0].device
+    gbar = [torch.mean(gamma_f[a]) for a in range(3)]
+    Qs = [torch.as_tensor(Q, device=dev) for Q, _ in bases]
+    lams = [torch.as_tensor(lam, device=dev) for _, lam in bases]
+    lam = (gbar[0] * lams[0][:, None, None]
+           + gbar[1] * lams[1][None, :, None]
+           + gbar[2] * lams[2][None, None, :])
+    small = torch.abs(lam) < nullspace_eps
+    inv = torch.where(small, 0.0, 1.0 / torch.where(small, 1.0, lam))
+
+    def apply(r: torch.Tensor) -> torch.Tensor:
+        t = torch.einsum("ia,iyz->ayz", Qs[0], r)
+        t = torch.einsum("jb,ajz->abz", Qs[1], t)
+        t = torch.einsum("kc,abk->abc", Qs[2], t)
+        t = t * inv
+        t = torch.einsum("kc,abc->abk", Qs[2], t)
+        t = torch.einsum("jb,abz->ajz", Qs[1], t)
+        return torch.einsum("ia,ayz->iyz", Qs[0], t)
+
+    return apply
+
+
+@dataclasses.dataclass(frozen=True)
+class PressureSolverConfig:
+    """The fvSolution `p` sub-dictionary; same fields and defaults as the
+    JAX package. ``use_pallas`` changes nothing here."""
+
+    solver: str = "mgpcg"      # 'pcg' | 'mgpcg' | 'fftpcg'
+    tol: float = 1e-6
+    rel_tol: float = 0.0
+    abs_tol: float = 1e-30
+    maxiter: int = 200
+    fixed_iters: int = 0
+    mg: MGConfig = MGConfig()
+    use_pallas: bool = False
+
+
+def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
+                   grid: Grid, bc: FieldBC,
+                   cfg: PressureSolverConfig = PressureSolverConfig(), *,
+                   pad=None, reduce_sum=_ident, nullspace: Optional[bool] = None,
+                   precond_bc: Optional[FieldBC] = None, solid=None) -> CGResult:
+    """Solve div(gamma_f grad p) = rhs. Without a Dirichlet face the
+    operator has the constant nullspace: the mean of rhs is removed and the
+    mean of p pinned (`pEqn.setReference`)."""
+    if solid is not None:
+        raise NotImplementedError(f"masked-cell obstacle solve: {_A13}")
+    if cfg.solver != "fftpcg" or cfg.fixed_iters:
+        raise NotImplementedError(
+            f"solver={cfg.solver!r}, fixed_iters={cfg.fixed_iters}: {_A13}")
+    pad = pad if pad is not None else default_pad(bc)
+    if nullspace is None:
+        nullspace = not any(f.kind == DIRICHLET for pair in bc.faces for f in pair)
+
+    # fold the affine (nonzero-Dirichlet) ghost constant into the RHS
+    bc_const = poisson_apply(torch.zeros_like(rhs), gamma_f, grid, pad)
+    rhs = rhs - bc_const
+    ncells = reduce_sum(torch.tensor(float(rhs.numel()), dtype=rhs.dtype,
+                                     device=rhs.device))
+
+    def _mean(f):
+        return reduce_sum(torch.sum(f)) / ncells
+
+    if nullspace:
+        rhs = rhs - _mean(rhs)
+        p0 = p0 - _mean(p0)
+
+    def apply_A(p):
+        return poisson_apply(p, gamma_f, grid, pad) - bc_const
+
+    mg_grid = Grid(tuple(rhs.shape), grid.spacing, grid.origin)
+    pbc = precond_bc if precond_bc is not None else bc.homogeneous()
+    M = make_spectral_preconditioner(gamma_f, mg_grid, pbc)
+    if M is None:
+        raise NotImplementedError(
+            f"fftpcg without a trigonometric basis (MG fallback): {_A13}")
+
+    res = pcg(apply_A, rhs, p0, precond=M, reduce_sum=reduce_sum,
+              tol=cfg.tol, atol=cfg.abs_tol, rel_tol=cfg.rel_tol,
+              maxiter=cfg.maxiter)
+    x = res.x
+    if nullspace:
+        x = x - _mean(x)
+    return CGResult(x, res.iters, res.residual, res.initial_residual)
