@@ -3,13 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the sources in this checkout,
-checks each against its plain PyTorch version at the main path's shapes,
-drives the main path (bench.py's configuration: 100k particles on a 128^3
-channel, window exchange, frozen Verlet list, kEqn, PIMPLE with fftpcg)
-through `initialize_state` and `make_scan_fn`, checks the bench's health
-conditions and that the main path went through every kernel, and checks
-the CUDA path against the CPU path of the same port on a small case.
+Builds the hand-written CUDA kernels from the sources in this checkout
+(one nvcc per source, all at once), checks each against its plain PyTorch
+version at the main paths' shapes (bench.py's 100k particles on a 128^3
+channel), and drives through `initialize_state` and `make_scan_fn`:
+
+  * the window slice: bench.py's configuration (window exchange, frozen
+    Verlet list, kEqn, PIMPLE with fftpcg);
+  * the planes slice: the same case with the CLI's `--fast` coupling
+    (planes exchange, fused kernel);
+  * the two-kernel planes path (`fused_planes=False`);
+then holds the 4-slab chunked planes exchange against the whole-grid one,
+checks the bench's health conditions and that each path went through its
+kernels, and checks the CUDA path against the CPU path of the same port
+on a small case for both exchanges.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -29,6 +36,8 @@ import numpy as np
 NX, N_PARTICLES, RADIUS, DT = 128, 100_000, 4e-4, 5e-5
 STEPS_PER_RUN, TIMED_RUNS = 10, 2
 KERNEL_RTOL = 1e-5
+JAX_OPS = "yade_openfoam_coupling_tpu/ops/"
+PORT_CSRC = "yade_openfoam_coupling_tpu_torch/csrc/"
 
 
 def bench_config(nx):
@@ -65,6 +74,16 @@ def bench_config(nx):
     )
 
 
+def planes_config(cfg, **coupling_kw):
+    """cfg with the CLI's `--fast` coupling (cli.py): the planes exchange,
+    'col' staging, dy in the kernel, packed unbin."""
+    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
+    coupling = cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
+                                 exchange="planes", slot_capacity=4, packed_bin="col",
+                                 dy_in_kernel=True, packed_unbin=True)
+    return dataclasses.replace(cfg, coupling=dataclasses.replace(coupling, **coupling_kw))
+
+
 def lattice_positions(n, length, seed=0):
     """bench.py's jittered non-overlapping lattice."""
     rng = np.random.RandomState(seed)
@@ -86,9 +105,14 @@ def initial_state(cfg, n, device, vel_scale=0.0):
         make_turbulence_state(cfg.grid, device, k0=1e-6), cfg, dt=DT)
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of fn() over reps runs, each between CUDA events."""
+def cuda_ms(fn, reps, warmup=2):
+    """Median milliseconds of fn() over reps runs, each between CUDA events,
+    after `warmup` untimed runs (the first timed calls of a run otherwise
+    read up to ~40% high)."""
     import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -100,79 +124,156 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def kernel_phase(cfg, device):
-    """The window kernel against its plain version at the main path's
-    shapes: the bench lattice with seeded velocities, seeded fluid inputs."""
+def check_close(kernel, name, k, p):
+    """The kernel's output k against the plain version's p: same shape,
+    finite, and within KERNEL_RTOL of each output channel's scale (f32 sums
+    in the same order as the plain version; exp and pow of the CUDA math
+    library and of PyTorch's kernels may differ by an ulp). -> max abs err."""
+    import torch
+    if k.shape != p.shape or not bool(torch.isfinite(k).all()):
+        raise AssertionError(f"{kernel} {name}: shape {tuple(k.shape)} vs "
+                             f"{tuple(p.shape)} or non-finite values")
+    rows = k.shape[0] * (k.shape[1] if k.dim() > 2 else 1)
+    err = (k - p).abs().reshape(rows, -1).amax(-1)
+    scale = p.abs().reshape(rows, -1).amax(-1)
+    if not bool((err <= KERNEL_RTOL * scale + 1e-30).all()):
+        raise AssertionError(f"{kernel} {name} disagrees with its plain version: "
+                             f"max err/scale {float((err / scale).max()):.3e}")
+    return float(err.max())
+
+
+def seeded_inputs(cfg, device, C_in, seed=0):
+    """The bench lattice with seeded velocities and angular velocities, and
+    a seeded padded fluid stack of C_in channels (alpha last, in [0.9, 1])."""
     import torch
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
-    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
     from yade_openfoam_coupling_tpu_torch.ops.coupling_planes import pad_wrap_zero
 
-    grid, ccfg = cfg.grid, cfg.coupling
-    gen = torch.Generator(device=device).manual_seed(0)
+    grid = cfg.grid
+    gen = torch.Generator(device=device).manual_seed(seed)
     pos = torch.as_tensor(lattice_positions(N_PARTICLES, grid.lengths[0]),
                           dtype=torch.float32, device=device)
     vel = 1e-2 * torch.randn(pos.shape, generator=gen, device=device)
-    pf = cp.ParticleFields(pos, vel, torch.zeros_like(pos),
+    ang = 1e-1 * torch.randn(pos.shape, generator=gen, device=device)
+    pf = cp.ParticleFields(pos, vel, ang,
                            torch.full((N_PARTICLES,), RADIUS, device=device),
                            torch.ones(N_PARTICLES, dtype=torch.bool, device=device))
+    F = 1e-2 * torch.randn((C_in,) + grid.shape, generator=gen, device=device)
+    F[-1] = 0.9 + 0.1 * torch.rand(grid.shape, generator=gen, device=device)
+    return pf, F, pad_wrap_zero(F, cfg.periodic_axes())
+
+
+def window_kernel_phase(cfg, device, extras=False):
+    """The window kernel against its plain version at the main path's
+    shapes; `extras` adds the torque and added-mass channels (C_in 16,
+    C_d 10, 7 result channels)."""
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+
+    ccfg = dataclasses.replace(cfg.coupling, use_torque=extras, use_added_mass=extras)
+    grid = cfg.grid
+    pf, _, Fp = seeded_inputs(cfg, device, 16 if extras else 10)
     W = cw.window_size(N_PARTICLES, grid.shape[0], ccfg.planes_window)
-    bins = cw.window_bins(pf, grid, ccfg.slot_capacity, W)
-    F = 1e-2 * torch.randn((10,) + grid.shape, generator=gen, device=device)
-    F[9] = 0.9 + 0.1 * torch.rand(grid.shape, generator=gen, device=device)
-    Fp = pad_wrap_zero(F, cfg.periodic_axes())
+    bins = cw.window_bins(pf, grid, ccfg.slot_capacity, W, with_angvel=extras)
     args = (Fp, bins.dat_win, grid, cfg.periodic_axes(), ccfg, 0,
             cfg.transport.nu, cfg.transport.rho_f)
     kw = dict(counts=bins.counts)
     plain = cw.window_exchange_padded_reference(*args, **kw)
     kern = cw.window_exchange_padded(*args, **kw)
-    torch.cuda.synchronize()
-    max_err = 0.0
-    for name, k, p in (("stks", kern[0], plain[0]), ("pres", kern[2], plain[2])):
-        if k.shape != p.shape or not bool(torch.isfinite(k).all()):
-            raise AssertionError(f"window kernel {name}: shape {tuple(k.shape)} "
-                                 f"vs {tuple(p.shape)} or non-finite values")
-        err = (k - p).abs().flatten(2).amax(-1)
-        scale = p.abs().flatten(2).amax(-1)
-        # f32 sums in the same order as the plain version; exp and pow of the
-        # CUDA math library and of PyTorch's kernels may differ by an ulp
-        if not bool((err <= KERNEL_RTOL * scale + 1e-30).all()):
-            raise AssertionError(f"window kernel {name} disagrees with its plain "
-                                 f"version: max err/scale {float((err / scale).max()):.3e}")
-        max_err = max(max_err, float(err.max()))
-    print(f"kernel window_exchange: max_abs_err {max_err:.3e} "
+    name = "window_exchange" + (" (torque, added mass)" if extras else "")
+    max_err = max(check_close(name, "stks", kern[0], plain[0]),
+                  check_close(name, "pres", kern[2], plain[2]))
+    if extras and not float(kern[2][3:6].abs().max()) > 0.0:
+        raise AssertionError(f"{name}: the torque channels are zero")
+    print(f"kernel {name}: max_abs_err {max_err:.3e} "
           f"(within {KERNEL_RTOL:g} of each channel's scale)", flush=True)
     ms = cuda_ms(lambda: cw.window_exchange_padded(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: cw.window_exchange_padded_reference(*args, **kw), 5)
-    return {"name": "window_exchange", "route": "cuda",
-            "source": "yade_openfoam_coupling_tpu_torch/csrc/window_exchange.cu",
-            "replaces": "yade_openfoam_coupling_tpu/ops/coupling_window.py:162",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
-def slice_phase(cfg, device, card):
-    """The main path at full size, as bench.py runs it."""
+def planes_kernel_phase(cfg, device):
+    """The fused, interpolation and deposit planes kernels against their
+    plain versions at the planes slice's shapes (whole grid, x_off 0)."""
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
+
+    grid, ccfg, periodic = cfg.grid, cfg.coupling, cfg.periodic_axes()
+    nu, rho_f = cfg.transport.nu, cfg.transport.rho_f
+    pf, _, Fp = seeded_inputs(cfg, device, 10)
+    D = cpp.bin_particles_planes(pf, grid, ccfg.slot_capacity,
+                                 packed_bin=ccfg.packed_bin).D
+    out = {}
+
+    args = (Fp, D, grid, periodic, ccfg, 0, nu, rho_f)
+    plain = cpp.fused_exchange_padded_reference(*args)
+    kern = cpp.fused_exchange_padded(*args)
+    err = max(check_close("planes_fused", "stks", kern[0], plain[0]),
+              check_close("planes_fused", "pres", kern[2], plain[2]))
+    out["planes_fused"] = (err, cuda_ms(lambda: cpp.fused_exchange_padded(*args), 20),
+                           cuda_ms(lambda: cpp.fused_exchange_padded_reference(*args), 5))
+
+    iargs = (Fp, D, grid, periodic, ccfg, 0)
+    G_p, n_p = cpp.interp_planes_padded_reference(*iargs)
+    G_k, n_k = cpp.interp_planes_padded(*iargs)
+    err = max(check_close("planes_interp", "G", G_k, G_p),
+              check_close("planes_interp", "norm", n_k, n_p))
+    out["planes_interp"] = (err, cuda_ms(lambda: cpp.interp_planes_padded(*iargs), 20),
+                            cuda_ms(lambda: cpp.interp_planes_padded_reference(*iargs), 5))
+
+    V, _, _, _ = cpp._physics_planes(D, G_p, n_p, grid.cell_volume, nu, rho_f, ccfg)
+    inv = 1.0 / n_p.where(n_p > 0, 1.0)
+    Vn = (V * inv.where(n_p > 0, 0.0)[None]).contiguous()
+    dargs = (Vn, D, grid.shape[0], grid, periodic, ccfg, 0)
+    plain = cpp.deposit_stacks_reference(*dargs)
+    kern = cpp.deposit_stacks(*dargs)
+    err = check_close("planes_deposit", "stks", kern[0], plain[0])
+    out["planes_deposit"] = (err, cuda_ms(lambda: cpp.deposit_stacks(*dargs), 20),
+                             cuda_ms(lambda: cpp.deposit_stacks_reference(*dargs), 5))
+    for name, (err, ms, plain_ms) in out.items():
+        print(f"kernel {name}: max_abs_err {err:.3e} (within {KERNEL_RTOL:g} of each "
+              f"channel's scale); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    return {name: {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            for name, (err, ms, plain_ms) in out.items()}
+
+
+def launch_counters():
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+    return {"window_exchange": cw.window_exchange_padded,
+            "planes_fused": cpp.fused_exchange_padded,
+            "planes_interp": cpp.interp_planes_padded,
+            "planes_deposit": cpp.deposit_stacks}
+
+
+def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS):
+    """One path at full size, as bench.py runs it: set-up and a warm-up
+    chunk, then `timed_runs` timed chunks of STEPS_PER_RUN steps. Every
+    launch count is set to 0 just before and read just after; each kernel
+    in `kernels` must have launched at least once per step. -> counts."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
-    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
 
-    cw.window_exchange_padded.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     state = initial_state(cfg, N_PARTICLES, device)
     run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     state, diags = run(state)                       # warm-up
     torch.cuda.synchronize()
-    print(f"slice set-up + warm-up {STEPS_PER_RUN} steps: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t2 = time.perf_counter()
+    print(f"{label}: set-up {t1 - t0:.2f} s, first {STEPS_PER_RUN} steps {t2 - t1:.3f} s "
+          f"({STEPS_PER_RUN / (t2 - t1):.3f} steps/s, no warm-up) [{card}]", flush=True)
     t0 = time.perf_counter()
-    all_diags = []
-    for _ in range(TIMED_RUNS):
+    all_diags = [diags] if timed_runs == 0 else []
+    for _ in range(timed_runs):
         state, diags = run(state)
         all_diags.append(diags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cw.window_exchange_padded.launches
-    n_steps = STEPS_PER_RUN * (1 + TIMED_RUNS)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_steps = STEPS_PER_RUN * (1 + timed_runs)
 
     d = {k: torch.cat([getattr(x, k).reshape(-1) for x in all_diags]).cpu().numpy()
          for k in all_diags[0]._fields}
@@ -181,27 +282,63 @@ def slice_phase(cfg, device, card):
     cont = float(np.abs(d["cont_err_local"]).max())
     n_over = int(d["n_contact_overflow"].max() + d["n_coupling_overflow"].max())
     if not p_final <= max(1e-5 * max(p_init, 1e-30), 5e-6):
-        raise AssertionError(f"pressure solve not converged: final {p_final:g} vs initial {p_init:g}")
+        raise AssertionError(f"{label}: pressure solve not converged: final {p_final:g} "
+                             f"vs initial {p_init:g}")
     if not cont < 1e-5:
-        raise AssertionError(f"continuity error {cont:g}")
+        raise AssertionError(f"{label}: continuity error {cont:g}")
     if n_over != 0:
-        raise AssertionError(f"capacity overflows: {n_over}")
+        raise AssertionError(f"{label}: capacity overflows: {n_over}")
     fs, ps = state.fluid, state.particles
     for name, t in (("u", fs.u), ("p", fs.p), ("alpha", fs.alpha), ("pos", ps.pos),
                     ("vel", ps.vel), ("nut", state.turb.nut)):
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite values in {name}")
-    if launches < n_steps:
-        raise AssertionError(f"window kernel launched {launches} times in {n_steps} steps")
-    steps_per_sec = TIMED_RUNS * STEPS_PER_RUN / wall
-    print(f"slice {N_PARTICLES} particles {NX}^3: {steps_per_sec:.3f} coupled steps/s "
-          f"[{card}]; p_iters {d['p_iters'].min()}-{d['p_iters'].max()}, p residual "
-          f"{p_final:.3e}, continuity {cont:.3e}, overflows {n_over}, window kernel "
-          f"launches {launches} in {n_steps} steps", flush=True)
+            raise AssertionError(f"{label}: non-finite values in {name}")
+    for name in kernels:
+        if launches[name] < n_steps:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} "
+                                 f"times in {n_steps} steps")
+    rate = (f"{timed_runs * STEPS_PER_RUN / wall:.3f} coupled steps/s [{card}]; "
+            if timed_runs else "")
+    print(f"{label} {N_PARTICLES} particles {NX}^3: {rate}p_iters "
+          f"{d['p_iters'].min()}-{d['p_iters'].max()}, p residual {p_final:.3e}, "
+          f"continuity {cont:.3e}, overflows {n_over}, launches "
+          f"{ {k: launches[k] for k in kernels} } in {n_steps} steps", flush=True)
     return launches
 
 
-def small_check(device):
+def chunked_phase(cfg, device):
+    """One 4-slab chunked planes exchange at full size against the
+    whole-grid one: B4 on slabs at x_off 0, 32, 64, 96. The fields and
+    forces agree to KERNEL_RTOL of their scale (the same per-slot
+    arithmetic; only the halo planes are summed in another order)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
+
+    grid, periodic = cfg.grid, cfg.periodic_axes()
+    pf, F, _ = seeded_inputs(cfg, device, 10, seed=1)
+    fields = (F[0:3], F[3:6], F[6:9], F[0:3], F[0:3])
+    args = (grid, periodic, cfg.transport.nu, cfg.transport.rho_f, DT)
+    whole = cpp.gaussian_coupling_planes(pf, *fields, *args, cfg.coupling, prev_alpha=F[9])
+    chunked = cpp.gaussian_coupling_planes_chunked(
+        pf, *fields, *args, dataclasses.replace(cfg.coupling, planes_chunks=4),
+        prev_alpha=F[9])
+    if int(whole.n_overflow) != 0 or int(chunked.n_overflow) != 0:
+        raise AssertionError(f"chunked phase: overflows {int(whole.n_overflow)} (whole), "
+                             f"{int(chunked.n_overflow)} (4 slabs)")
+    if not torch.equal(whole.found, chunked.found) or int(whole.found.sum()) != N_PARTICLES:
+        raise AssertionError("chunked phase: found differs from the whole-grid exchange")
+    worst = 0.0
+    for name in ("alpha", "u_particle", "u_source", "u_source_drag", "force"):
+        a, b = getattr(chunked, name), getattr(whole, name)
+        rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        worst = max(worst, rel)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"chunked phase: {name} differs by {rel:.3e} of its scale")
+    print(f"chunked planes exchange (4 slabs) vs whole grid at {NX}^3/{N_PARTICLES}: "
+          f"worst relative difference {worst:.3e}, overflows 0", flush=True)
+
+
+def small_check(device, cfg, label):
     """The CUDA path against the CPU path (plain versions) of the same port
     on a 16^3 case with 400 moving particles, 4 steps: the state agrees to
     1e-3 of each field's scale (f32 arithmetic in another order, amplified
@@ -209,7 +346,6 @@ def small_check(device):
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
 
-    cfg = bench_config(16)
     cfg = dataclasses.replace(cfg, dem=dataclasses.replace(cfg.dem, list_rebuild_steps=2))
     out = {}
     for dev in (device, torch.device("cpu")):
@@ -218,7 +354,7 @@ def small_check(device):
         out[dev.type] = (state, diags)
     (gs, gd), (cs, cd_) = out["cuda"], out["cpu"]
     if not torch.equal(gd.p_iters.cpu(), cd_.p_iters):
-        print(f"note: p_iters cuda {gd.p_iters.tolist()} cpu {cd_.p_iters.tolist()}")
+        print(f"note: {label} p_iters cuda {gd.p_iters.tolist()} cpu {cd_.p_iters.tolist()}")
     worst = 0.0
     for name, g, c in (("u", gs.fluid.u, cs.fluid.u), ("p", gs.fluid.p, cs.fluid.p),
                        ("alpha", gs.fluid.alpha, cs.fluid.alpha),
@@ -227,9 +363,9 @@ def small_check(device):
         rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
         worst = max(worst, rel)
         if not rel <= 1e-3:
-            raise AssertionError(f"small case: {name} on the GPU differs from the CPU "
-                                 f"path by {rel:.3e} of its scale")
-    print(f"small case 16^3/400, 4 steps: GPU (kernels) vs CPU (plain) worst "
+            raise AssertionError(f"small case ({label}): {name} on the GPU differs from "
+                                 f"the CPU path by {rel:.3e} of its scale")
+    print(f"small case 16^3/400 ({label}), 4 steps: GPU (kernels) vs CPU (plain) worst "
           f"relative difference {worst:.3e}", flush=True)
 
 
@@ -248,20 +384,45 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    kernels.library()
-    lib = kernels.library_path()
-    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {lib.name}",
-          flush=True)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    libs = kernels.build()
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
+          f"{', '.join(p.name for p in libs.values())}", flush=True)
+    for path in libs.values():
+        print(path.with_suffix(".log").read_text().strip(), flush=True)
 
     cfg = bench_config(NX)
-    entry = kernel_phase(cfg, device)
-    print(f"window_exchange at {NX}^3/{N_PARTICLES}: kernel {entry['ms']:.3f} ms, "
-          f"plain {entry['plain_ms']:.3f} ms [{smi}]", flush=True)
-    entry["launches"] = slice_phase(cfg, device, smi)
-    small_check(device)
+    pcfg = planes_config(cfg)
+    window = window_kernel_phase(cfg, device)
+    window["torque_added_mass"] = window_kernel_phase(cfg, device, extras=True)
+    planes = planes_kernel_phase(pcfg, device)
+    for name, e in [("window_exchange", window), *planes.items()]:
+        print(f"{name} at {NX}^3/{N_PARTICLES}: kernel {e['ms']:.3f} ms, "
+              f"plain {e['plain_ms']:.3f} ms [{smi}]", flush=True)
 
-    print(json.dumps({"kernels": [entry]}))
+    launches = {}
+    runs = slice_phase(cfg, device, smi, "window slice", ["window_exchange"])
+    launches["window_exchange"] = runs["window_exchange"]
+    runs = slice_phase(pcfg, device, smi, "planes slice", ["planes_fused"])
+    launches["planes_fused"] = runs["planes_fused"]
+    runs = slice_phase(planes_config(cfg, fused_planes=False), device, smi,
+                       "two-kernel planes slice", ["planes_interp", "planes_deposit"],
+                       timed_runs=0)
+    launches["planes_interp"] = runs["planes_interp"]
+    launches["planes_deposit"] = runs["planes_deposit"]
+    chunked_phase(pcfg, device)
+    small_check(device, bench_config(16), "window")
+    small_check(device, planes_config(bench_config(16)), "planes")
+
+    sources = {"window_exchange": ("window_exchange.cu", "coupling_window.py:162"),
+               "planes_fused": ("planes_exchange.cu", "coupling_planes.py:508"),
+               "planes_interp": ("planes_exchange.cu", "coupling_planes.py:278"),
+               "planes_deposit": ("planes_exchange.cu", "coupling_planes.py:404")}
+    entries = []
+    for name, e in [("window_exchange", window), *planes.items()]:
+        src, replaces = sources[name]
+        entries.append({"name": name, "route": "cuda", "source": PORT_CSRC + src,
+                        "replaces": JAX_OPS + replaces, "launches": launches[name], **e})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,14 +6,19 @@ machine without the JAX package's dependencies:
 
 Without a CUDA device every test here skips."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
+from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
 from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
 from yade_openfoam_coupling_tpu_torch.ops.coupling_planes import pad_wrap_zero
 from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
+
+GRID = Grid.box((12, 10, 14), (0.012, 0.010, 0.014))
 
 
 @pytest.fixture
@@ -23,48 +28,71 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(grid, periodic, cfg, n, device, seed):
+def _particle_fields(grid, n, device, seed):
     rng = np.random.RandomState(seed)
     lo = [0.08 * L for L in grid.lengths]
     hi = [0.92 * L for L in grid.lengths]
-    pos = torch.as_tensor(rng.uniform(lo, hi, (n, 3)), dtype=torch.float32, device=device)
-    vel = torch.as_tensor(rng.randn(n, 3) * 1e-3, dtype=torch.float32, device=device)
-    pf = cp.ParticleFields(pos, vel, torch.zeros_like(pos),
-                           torch.full((n,), 4e-4, device=device),
-                           torch.ones(n, dtype=torch.bool, device=device))
-    W = cw.window_size(n, grid.shape[0], cfg.planes_window)
-    bins = cw.window_bins(pf, grid, cfg.slot_capacity, W)
-    F = rng.randn(10, *grid.shape).astype(np.float32) * 1e-2
-    F[9] = 0.9 + 0.1 * rng.rand(*grid.shape)
-    Fp = pad_wrap_zero(torch.as_tensor(F, device=device), periodic)
-    return Fp, bins
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return cp.ParticleFields(t(rng.uniform(lo, hi, (n, 3))), t(rng.randn(n, 3) * 1e-3),
+                             t(rng.randn(n, 3) * 1e-2), torch.full((n,), 4e-4, device=device),
+                             torch.ones(n, dtype=torch.bool, device=device))
+
+
+def _fluid_stack(grid, periodic, cfg, device, seed):
+    """Seeded padded input stack (C_in, nx+2, ny+2, nz+2), alpha last."""
+    rng = np.random.RandomState(seed)
+    C_in = 10 + 3 * cfg.use_torque + 3 * cfg.use_added_mass
+    F = rng.randn(C_in, *grid.shape).astype(np.float32) * 1e-2
+    F[-1] = 0.9 + 0.1 * rng.rand(*grid.shape)
+    return pad_wrap_zero(torch.as_tensor(F, device=device), periodic)
+
+
+def _assert_channels_close(out, ref, rtol=1e-5):
+    """Within rtol of each output channel's scale: f32 sums in the same
+    order as the plain version; exp and pow of the CUDA math library and of
+    PyTorch's kernels may differ by an ulp."""
+    assert out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    err = (out - ref).abs().reshape(ref.shape[0], -1).amax(-1)
+    scale = ref.abs().reshape(ref.shape[0], -1).amax(-1)
+    assert bool((err <= rtol * scale + 1e-30).all()), float((err / scale).max())
+
+
+def _window_case(periodic, cfg, device, seed):
+    pf = _particle_fields(GRID, 300, device, seed)
+    W = cw.window_size(300, GRID.shape[0], cfg.planes_window)
+    bins = cw.window_bins(pf, GRID, cfg.slot_capacity, W, with_angvel=cfg.use_torque)
+    return _fluid_stack(GRID, periodic, cfg, device, seed), bins
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,periodic", [("sphere2", (True, True, False)),
-                                            ("cube", (False, False, False))])
-def test_window_kernel_matches_plain(cuda, shape, periodic):
+@pytest.mark.parametrize("shape,periodic,extras", [
+    ("sphere2", (True, True, False), False),
+    ("cube", (False, False, False), False),
+    ("sphere2", (True, True, False), True),
+])
+def test_window_kernel_matches_plain(cuda, shape, periodic, extras):
     """CUDA tensors launch the kernel of csrc/window_exchange.cu and count
     the launch; it agrees with the plain version to 1e-5 of each output
-    channel's scale (f32 sums in the same order; exp and pow of the CUDA
-    math library and of PyTorch's kernels may differ by an ulp)."""
-    grid = Grid.box((12, 10, 14), (0.012, 0.010, 0.014))
+    channel's scale, also with torque and added mass (C_in 16, C_d 10, 7
+    result channels)."""
     cfg = cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape=shape,
                             exchange="window", slot_capacity=4, dy_in_kernel=True,
-                            window_dynamic=True)
-    Fp, bins = _inputs(grid, periodic, cfg, 300, cuda, seed=21)
-    args = (Fp, bins.dat_win, grid, periodic, cfg, 0, 1e-6, 1000.0)
+                            window_dynamic=True, use_torque=extras, use_added_mass=extras)
+    Fp, bins = _window_case(periodic, cfg, cuda, seed=21)
+    args = (Fp, bins.dat_win, GRID, periodic, cfg, 0, 1e-6, 1000.0)
     plain = cw.window_exchange_padded_reference(*args, counts=bins.counts)
     before = cw.window_exchange_padded.launches
     kern = cw.window_exchange_padded(*args, counts=bins.counts)
     torch.cuda.synchronize()
     assert cw.window_exchange_padded.launches == before + 1
     assert kern[1] == plain[1]
+    assert kern[2].shape[0] == (7 if extras else 4)
     for o, r in ((kern[0], plain[0]), (kern[2], plain[2])):
-        assert o.shape == r.shape
-        err = (o - r).abs().flatten(2).amax(-1)
-        scale = r.abs().flatten(2).amax(-1)
-        assert bool((err <= 1e-5 * scale + 1e-30).all())
+        _assert_channels_close(o.reshape(o.shape[0] * o.shape[1], -1),
+                               r.reshape(r.shape[0] * r.shape[1], -1))
+    if extras:
+        assert float(kern[2][3:6].abs().max()) > 0.0
 
 
 @pytest.mark.cuda
@@ -72,14 +100,91 @@ def test_window_kernel_rejects_what_it_does_not_take(cuda):
     grid = Grid.cube(8, 0.008)
     cfg = cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
                             exchange="window")
-    Fp, bins = _inputs(grid, (True, True, False), cfg, 50, cuda, seed=3)
+    pf = _particle_fields(grid, 50, cuda, seed=3)
+    bins = cw.window_bins(pf, grid, cfg.slot_capacity, 512)
+    Fp = _fluid_stack(grid, (True, True, False), cfg, cuda, seed=3)
     args = (grid, (True, True, False), cfg, 0, 1e-6, 1000.0)
     with pytest.raises(ValueError, match="contiguous"):
         cw.window_exchange_padded(Fp.transpose(2, 3), bins.dat_win, *args)
     with pytest.raises(ValueError, match="counts"):
         cw.window_exchange_padded(Fp, bins.dat_win, *args, counts=bins.counts.long())
-    torque = cp.CouplingConfig(gaussian=True, lag_alpha=True, exchange="window",
-                               use_torque=True)
-    with pytest.raises(NotImplementedError):
+    # torque mode stages 10 channels: a 7-channel window is refused
+    torque = dataclasses.replace(cfg, use_torque=True)
+    with pytest.raises(ValueError, match="Fp"):
         cw.window_exchange_padded(Fp, bins.dat_win, grid, (True, True, False), torque,
                                   0, 1e-6, 1000.0)
+
+
+def _planes_case(periodic, cfg, device, seed, slab=None):
+    """Slot table and padded stack of the whole grid, or of the x-slab
+    `slab` = (x0, nxc) as the chunked exchange cuts them."""
+    pf = _particle_fields(GRID, 300, device, seed)
+    Fp = _fluid_stack(GRID, periodic, cfg, device, seed)
+    kw, x0 = {}, 0
+    if slab is not None:
+        x0, nxc = slab
+        Fp = Fp[:, x0:x0 + nxc + 2].contiguous()
+        kw = dict(x_start=x0, n_loc=nxc)
+    bins = cpp.bin_particles_planes(pf, GRID, cfg.slot_capacity,
+                                    with_angvel=cfg.use_torque, **kw)
+    return Fp, bins.D, x0
+
+
+PLANES_CASES = [((True, True, False), False, None), ((False, False, False), False, (4, 4)),
+                ((True, True, False), True, (8, 4))]
+
+
+def _planes_cfg(extras):
+    return cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
+                             exchange="planes", slot_capacity=4, use_torque=extras,
+                             use_added_mass=extras)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic,extras,slab", PLANES_CASES)
+def test_planes_fused_kernel_matches_plain(cuda, periodic, extras, slab):
+    """The fused planes kernel (csrc/planes_exchange.cu) against its plain
+    version on the whole grid and on slabs at x_off 4 and 8, with torque
+    and added mass off and on."""
+    cfg = _planes_cfg(extras)
+    Fp, D, x0 = _planes_case(periodic, cfg, cuda, seed=31, slab=slab)
+    args = (Fp, D, GRID, periodic, cfg, x0, 1e-6, 1000.0)
+    plain = cpp.fused_exchange_padded_reference(*args)
+    before = cpp.fused_exchange_padded.launches
+    kern = cpp.fused_exchange_padded(*args)
+    torch.cuda.synchronize()
+    assert cpp.fused_exchange_padded.launches == before + 1
+    assert kern[1] == plain[1]
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+    _assert_channels_close(kern[2], plain[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic,extras,slab", PLANES_CASES)
+def test_planes_interp_and_deposit_kernels_match_plain(cuda, periodic, extras, slab):
+    """The interpolation and deposit kernels against their plain versions:
+    G and the norm, then the deposit of the pre-normalised V that the force
+    laws make from them."""
+    cfg = _planes_cfg(extras)
+    Fp, D, x0 = _planes_case(periodic, cfg, cuda, seed=41, slab=slab)
+    nxl = Fp.shape[1] - 2
+    args = (Fp, D, GRID, periodic, cfg, x0)
+    G_p, n_p = cpp.interp_planes_padded_reference(*args)
+    before = cpp.interp_planes_padded.launches
+    G_k, n_k = cpp.interp_planes_padded(*args)
+    torch.cuda.synchronize()
+    assert cpp.interp_planes_padded.launches == before + 1
+    _assert_channels_close(G_k, G_p)
+    _assert_channels_close(n_k[None], n_p[None])
+
+    V, _, _, _ = cpp._physics_planes(D, G_p, n_p, GRID.cell_volume, 1e-6, 1000.0, cfg)
+    inv = torch.where(n_p > 0, 1.0 / torch.where(n_p > 0, n_p, 1.0), 0.0)
+    Vn = (V * inv[None]).contiguous()
+    dargs = (Vn, D, nxl, GRID, periodic, cfg, x0)
+    plain = cpp.deposit_stacks_reference(*dargs)
+    before = cpp.deposit_stacks.launches
+    kern = cpp.deposit_stacks(*dargs)
+    torch.cuda.synchronize()
+    assert cpp.deposit_stacks.launches == before + 1
+    assert kern[1] == plain[1]
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))

@@ -141,7 +141,7 @@ def test_case_config_from_and_unported_options_raise():
     assert isinstance(port.dem.params, tdem.ContactParams)
     assert _plain(port) == _plain(cfg)
     for bad in (dataclasses.replace(port, solver="piso"),
-                dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="planes")),
+                dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="sparse")),
                 dataclasses.replace(port, dem=tdem.DEMConfig(shear_history=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP A1[123]"):
             tcd.make_scan_fn(bad, 1)

@@ -5,9 +5,11 @@ The package mirrors the JAX package's layout (`ops/`, `models/`,
 port function can be held against its JAX counterpart on the same inputs.
 It imports torch and numpy only, never jax.
 
-Plain tensor code is PyTorch; the one Pallas kernel on the main path
-(`coupling_window._window_kernel`) is a CUDA kernel written by hand for
-Hopper (`csrc/window_exchange.cu`), built at first use into `_build/`.
+Plain tensor code is PyTorch; the Pallas kernels of the window and planes
+exchanges (`coupling_window._window_kernel`, `coupling_planes._fused_kernel`,
+`_interp_kernel`, `_deposit_kernel`) are CUDA kernels written by hand for
+Hopper (`csrc/window_exchange.cu`, `csrc/planes_exchange.cu`, sharing
+`csrc/exchange_common.cuh`), built at first use into `_build/`.
 """
 
 import torch

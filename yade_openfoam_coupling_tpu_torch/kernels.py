@@ -1,11 +1,12 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, at first use, into
-``_build/`` beside this file. The library's name carries a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing here runs at import time; a failed build raises
-with the compiler's output.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, all of them
+at once, at first use, into ``_build/`` beside this file. The libraries'
+names carry a hash of every file under ``csrc/`` (sources and the headers
+they include) and of the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is. Nothing here runs at import time;
+a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -24,7 +26,14 @@ BUILD = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
+# every library's C entry points and their argument counts (all pointers)
+ENTRY_POINTS = {
+    "window_exchange": {"yofc_param_counts": 2, "yofc_window_exchange": 10},
+    "planes_exchange": {"yofc_param_counts": 2, "yofc_planes_fused": 8,
+                        "yofc_planes_interp": 7, "yofc_planes_deposit": 6},
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,51 +46,60 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD / f"libyofc_kernels_{h.hexdigest()[:16]}.so"
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(CSRC)).encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources if no library for them exists; return its path.
-    The compiler's report (registers, spills per kernel) is kept beside the
-    library with the suffix .log."""
-    out = library_path()
-    if out.exists():
-        return out
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` for the current sources
+    lives (built or not)."""
+    return BUILD / f"lib{name}_{_digest()}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every source that has no library for the current sources
+    yet, one nvcc per source, all started together; return the library
+    paths by name. Each compiler report (registers, spills per kernel) is
+    kept beside its library with the suffix .log."""
+    outs = {name: library_path(name) for name in ENTRY_POINTS}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)      # atomic: a concurrent build never sees half a file
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{report}")
+            continue
+        out = todo[name]
+        out.with_suffix(".log").write_text(report)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with every entry
-    point's argument types declared."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.yofc_window_param_counts.argtypes = [P, P]
-        lib.yofc_window_param_counts.restype = I
-        lib.yofc_window_exchange.argtypes = [P] * 10
-        lib.yofc_window_exchange.restype = I
-        _lib = lib
-    return _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, every library built on
+    first use, with its entry points' argument types declared."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
+        for fn, n_args in ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = [ctypes.c_void_p] * n_args
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]

@@ -2,14 +2,16 @@
 `yade_openfoam_coupling_tpu/models/coupled.py`).
 
 One coupled step: Courant number and adaptive dt, the coupling inputs,
-the window exchange, the DEM substeps on the frozen Verlet list, the kEqn
+the window or planes exchange (whole grid, or in x-slabs under
+``planes_chunks > 1``), the DEM substeps on the frozen Verlet list, the kEqn
 correction and the PIMPLE step, then the diagnostics. `make_scan_fn` runs
 chunks of [one Verlet-list rebuild -> K frozen-list steps] as a Python loop
 and stacks the per-step diagnostics along a leading axis.
 
-Not ported yet: the PISO solver (ROADMAP A13), the other exchanges and the
-point-force path (A12), the per-step conditional list rebuild, shear
-history and dynamic substeps (A11), obstacles (A13).
+Not ported yet: the PISO solver (ROADMAP A13), the sparse and slots
+exchanges, `gaussian_coupling_chunked` and the point-force path (A12), the
+per-step conditional list rebuild, shear history and dynamic substeps
+(A11), obstacles (A13).
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ import torch
 from ..ops import coupling as cp
 from ..ops import dem as demod
 from ..ops import stencil as st
+from ..ops.coupling_planes import (
+    gaussian_coupling_planes,
+    gaussian_coupling_planes_chunked,
+)
 from ..ops.coupling_window import gaussian_coupling_window
 from ..ops.grid import FieldBC, Grid
 from ..utils.diagnostics import (
@@ -79,16 +85,19 @@ def _check_supported(cfg: CaseConfig) -> None:
         raise NotImplementedError(f"solver={cfg.solver!r}: not ported yet (ROADMAP A13)")
     if cfg.solid is not None:
         raise NotImplementedError("masked-cell obstacles: not ported yet (ROADMAP A13)")
-    c = cfg.coupling
-    if not c.gaussian or c.exchange != "window":
-        raise NotImplementedError(
-            f"coupling exchange={c.exchange!r} gaussian={c.gaussian}: "
-            "not ported yet (ROADMAP A12)")
+    _check_exchange(cfg.coupling)
     d = cfg.dem
     if d.shear_history or d.dynamic_substeps or d.enforce_critical_dt:
         raise NotImplementedError(
             "shear history / dynamic substeps / critical-dt clamp: "
             "not ported yet (ROADMAP A11)")
+
+
+def _check_exchange(c: cp.CouplingConfig) -> None:
+    if not c.gaussian or c.exchange not in ("window", "planes"):
+        raise NotImplementedError(
+            f"coupling exchange={c.exchange!r} gaussian={c.gaussian}: "
+            "not ported yet (ROADMAP A12)")
 
 
 def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
@@ -115,17 +124,19 @@ def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
 def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
              tp: TransportProperties, cfg: cp.CouplingConfig, dt,
              ctx=None) -> cp.CouplingResult:
-    """One in-memory coupling exchange (`setParticleAction`); only the
-    window exchange is ported."""
+    """One in-memory coupling exchange (`setParticleAction`); the window
+    and planes exchanges are ported."""
     from ..parallel.ctx import LOCAL
     ctx = ctx if ctx is not None else LOCAL
-    if not cfg.gaussian or cfg.exchange != "window":
-        raise NotImplementedError(
-            f"coupling exchange={cfg.exchange!r} gaussian={cfg.gaussian}: "
-            "not ported yet (ROADMAP A12)")
+    _check_exchange(cfg)
     curl_u, grad_p, div_tau, ddt_u = _coupling_inputs(fs, grid, bcs, tp.nu, dt, ctx, cfg)
     pf = cp.ParticleFields(ps.pos, ps.vel, ps.angvel, ps.radius, ps.active)
-    return gaussian_coupling_window(
+    if cfg.exchange == "planes":
+        fn = (gaussian_coupling_planes_chunked if cfg.planes_chunks > 1
+              else gaussian_coupling_planes)
+    else:
+        fn = gaussian_coupling_window
+    return fn(
         pf, fs.u, grad_p, div_tau, ddt_u, curl_u,
         grid, bcs.periodic_axes(), tp.nu, tp.rho_f, dt, cfg,
         prev_alpha=fs.alpha)

@@ -2,8 +2,8 @@
 of `yade_openfoam_coupling_tpu/ops/coupling.py` that the window exchange
 uses).
 
-The exchange itself lives in `coupling_window.py`; the sparse, slots and
-planes exchanges are not ported yet (ROADMAP A12).
+The exchanges live in `coupling_window.py` and `coupling_planes.py`; the
+sparse and slots exchanges are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -29,11 +29,12 @@ class CouplingConfig:
     """Static switches of the coupling engine; same fields and defaults as
     the JAX package's `CouplingConfig` (see its field comments).
 
-    Only ``exchange="window"`` with ``gaussian`` and ``lag_alpha`` runs in
-    the port. ``dy_in_kernel``, ``packed_unbin``, ``unbin_gather`` and
-    ``window_dynamic`` change no result in the JAX package; the port takes
-    one path for each (dy shifts in the kernel, flat unbin gather, windows
-    read up to each plane's count)."""
+    Only ``exchange="window"`` and ``"planes"`` with ``gaussian`` and
+    ``lag_alpha`` run in the port. ``dy_in_kernel``, ``packed_bin``,
+    ``packed_unbin``, ``unbin_gather`` and ``window_dynamic`` change no
+    result in the JAX package; the port takes one path for each (dy shifts
+    in the kernel, an indexed store into the slot table, flat unbin gather,
+    windows read up to each plane's count)."""
 
     gaussian: bool = True
     stencil_width: int = 3

@@ -17,8 +17,6 @@ n_overflow and uncoupled for the step.
 
 from __future__ import annotations
 
-import ctypes
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -26,9 +24,17 @@ import torch
 
 from . import coupling as cp
 from .coupling_planes import (
-    _combo_of,
-    _physics_planes,
-    _roll_contrib,
+    DX_COMBOS,
+    _channel_counts,
+    _check_cuda,
+    _coupling_result,
+    _input_stack,
+    _inv2s2,
+    _kernel_params,
+    _launch,
+    _on_cpu,
+    _padded_shape,
+    _slot_exchange,
     _stack_epilogue,
     _unbin_rows,
     pad_wrap_zero,
@@ -61,9 +67,7 @@ def _factors(D, act, grid: Grid, periodic, offsets, x_off, dtype):
     masks of non-periodic axes and the activity gate. Shapes (cap, nx, ny, nz)."""
     cap, nxl, ny, nz = D.shape[1:]
     dev = D.device
-    h_mean = float(np.cbrt(grid.cell_volume))
-    sigma = cp.SIGMA_OVER_RANGE * cp.INTERP_RANGE_CELLS * h_mean
-    inv2s2 = float(1.0 / (2.0 * sigma * sigma))
+    inv2s2 = _inv2s2(grid)
     hx, hy, hz = (float(s) for s in grid.spacing)
     nx = grid.shape[0]
     ix = torch.arange(nxl, device=dev)[None, :, None, None] + x_off
@@ -109,12 +113,10 @@ def window_exchange_padded_reference(
     nxl*ny*nz)): one stack per dx with the dy and dz shifts applied, for
     every ``cfg.dy_in_kernel`` (which only chooses stack layouts in the JAX
     package)."""
-    C_in = Fp.shape[0]
     nxl, ny, nz = Fp.shape[1] - 2, Fp.shape[2] - 2, Fp.shape[3] - 2
     cap = cfg.slot_capacity
     offsets = cp.stencil_offsets(cfg)
-    combos = sorted({_combo_of(o, True) for o in offsets})
-    C_d = 10 if cfg.use_torque else 7
+    C_d = _channel_counts(cfg)[0]
     W = dat_win.shape[2]
     dev, dtype = Fp.device, Fp.dtype
 
@@ -132,68 +134,7 @@ def window_exchange_padded_reference(
 
     act = D[6] > 0.0
     fx, fy, fz = _factors(D, act, grid, periodic, offsets, x_off, dtype)
-
-    # interp: all input channels per offset, normalised at the end
-    acc = None
-    norm = None
-    for o in offsets:
-        dx, dy, dz = (int(v) for v in o)
-        w = fx[dx] * fy[dy] * fz[dz]
-        norm = w if norm is None else norm + w
-        F = Fp[:, 1 + dx: 1 + dx + nxl, 1 + dy: 1 + dy + ny, 1 + dz: 1 + dz + nz]
-        t = w[None] * F[:, None]
-        acc = t if acc is None else acc + t
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    inv_norm = torch.where(norm > 0.0, 1.0 / torch.where(norm > 0.0, norm, 1.0), zero)
-    G = acc * inv_norm[None]
-
-    V, force, torque, found = _physics_planes(
-        D, G, norm, grid.cell_volume, nu, rho_f, cfg)
-    Vn = V * inv_norm[None]
-
-    # deposit: per-offset slot sums, shifted by (dy,) dz, one stack per combo
-    accd = {}
-    for o in offsets:
-        dx, dy, dz = (int(v) for v in o)
-        w = fx[dx] * fy[dy] * fz[dz]
-        contrib = _roll_contrib(torch.sum(w[None] * Vn, dim=1), o, True)
-        key = _combo_of(o, True)
-        accd[key] = contrib if key not in accd else accd[key] + contrib
-    stks = torch.stack([accd[c] for c in combos])
-
-    parts = [force] + ([torque] if cfg.use_torque else []) + [found.to(dtype)[None]]
-    pres = torch.cat(parts)
-    return stks, combos, pres.reshape(pres.shape[0], cap, nxl * ny * nz)
-
-
-def _kernel_params(grid: Grid, periodic, cfg: cp.CouplingConfig, offsets,
-                   nxl: int, W: int, C_w: int, C_in: int, x_off: int,
-                   nu: float, rho_f: float):
-    """Host parameter arrays of `yofc_window_exchange`, in the layout of the
-    IParam/FParam enums of csrc/window_exchange.cu. Every float is rounded
-    from the same double-precision expression as the plain version uses."""
-    ny, nz = grid.shape[1], grid.shape[2]
-    max_off = 27
-    ip = np.zeros(13 + 3 * max_off, np.int32)
-    ip[:13] = (nxl, ny, nz, W, C_w, C_in, cfg.slot_capacity, grid.shape[0], x_off,
-               int(periodic[0]), int(periodic[1]), int(periodic[2]), len(offsets))
-    ip[13:13 + 3 * len(offsets)] = np.asarray(offsets).reshape(-1)
-    h_mean = float(np.cbrt(grid.cell_volume))
-    sigma = cp.SIGMA_OVER_RANGE * cp.INTERP_RANGE_CELLS * h_mean
-    fp = np.zeros(15, np.float32)
-    fp[:9] = [d * float(h) for h in grid.spacing for d in (-1, 0, 1)]
-    fp[9:] = (1.0 / (2.0 * sigma * sigma), nu, rho_f, nu * rho_f,
-              1.0 / (grid.cell_volume * rho_f), (4.0 / 3.0) * math.pi)
-    return ip, fp
-
-
-def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"window kernel: {name} must be a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
+    return _slot_exchange(Fp, D, fx, fy, fz, offsets, grid.cell_volume, nu, rho_f, cfg)
 
 
 def window_exchange_padded(
@@ -212,57 +153,32 @@ def window_exchange_padded(
     tensors run the plain version; CUDA tensors launch the kernel of
     csrc/window_exchange.cu or raise. ``window_exchange_padded.launches``
     counts kernel launches."""
-    if Fp.device.type == "cpu":
+    kernel = "window kernel"
+    if _on_cpu(kernel, Fp, cfg):
         return window_exchange_padded_reference(
             Fp, dat_win, grid, periodic, cfg, x_off, nu, rho_f, counts=counts)
-    if Fp.device.type != "cuda":
-        raise ValueError(f"window kernel: unsupported device {Fp.device}")
-    if cfg.use_torque or cfg.use_added_mass:
-        raise NotImplementedError(
-            "window kernel with use_torque/use_added_mass: not ported yet "
-            "(ROADMAP B1 follow-up)")
-    if cfg.stencil_width != 3:
-        raise NotImplementedError("window kernel: stencil_width must be 3")
-    from ..kernels import library
-
     nxl, ny, nz = Fp.shape[1] - 2, Fp.shape[2] - 2, Fp.shape[3] - 2
     cap = cfg.slot_capacity
-    C_d = 7
-    C_in = 10
+    C_d, C_in, n_pres = _channel_counts(cfg)
     C_w = 2 * C_d + 3
     W = dat_win.shape[-1]
     dev = Fp.device
-    _check_cuda("Fp", Fp, torch.float32, (C_in, nxl + 2, ny + 2, nz + 2), dev)
-    if (ny, nz) != tuple(grid.shape[1:]):
-        raise ValueError(f"window kernel: Fp planes {(ny, nz)} != grid {grid.shape[1:]}")
-    _check_cuda("dat_win", dat_win, torch.float32, (nxl, C_w, W), dev)
+    _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
+    _check_cuda(kernel, "dat_win", dat_win, (nxl, C_w, W), dev)
     if counts is not None:
-        _check_cuda("counts", counts, torch.int32, (nxl,), dev)
+        _check_cuda(kernel, "counts", counts, (nxl,), dev, dtype=torch.int32)
 
-    offsets = cp.stencil_offsets(cfg)
-    combos = sorted({_combo_of(o, True) for o in offsets})
-    ip, fp = _kernel_params(grid, periodic, cfg, offsets, nxl, W, C_w, C_in,
-                            int(x_off), nu, rho_f)
-    lib = library()
-    n_int, n_float = ctypes.c_int(), ctypes.c_int()
-    lib.yofc_window_param_counts(ctypes.byref(n_int), ctypes.byref(n_float))
-    if (n_int.value, n_float.value) != (ip.size, fp.size):
-        raise RuntimeError("window kernel: parameter layout of the library "
-                           f"{(n_int.value, n_float.value)} != {(ip.size, fp.size)}")
+    ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
+                            absolute=False, nu=nu, rho_f=rho_f, W=W, C_w=C_w)
     ncell = nxl * ny * nz
     D = torch.zeros((C_d, cap, nxl, ny, nz), dtype=torch.float32, device=dev)
     V = torch.empty((8, cap, ncell), dtype=torch.float32, device=dev)
-    stks = torch.empty((len(combos), 8, nxl, ny, nz), dtype=torch.float32, device=dev)
-    pres = torch.empty((4, cap, ncell), dtype=torch.float32, device=dev)
-    err = lib.yofc_window_exchange(
-        ip.ctypes.data, fp.ctypes.data, Fp.data_ptr(), dat_win.data_ptr(),
-        None if counts is None else counts.data_ptr(),
-        D.data_ptr(), V.data_ptr(), stks.data_ptr(), pres.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window kernel launch failed: CUDA error {err}")
+    stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
+    pres = torch.empty((n_pres, cap, ncell), dtype=torch.float32, device=dev)
+    _launch("window_exchange", "yofc_window_exchange", kernel, ip, fp, Fp, dat_win,
+            counts, D, V, stks, pres, device=dev)
     window_exchange_padded.launches += 1
-    return stks, combos, pres
+    return stks, list(DX_COMBOS), pres
 
 
 window_exchange_padded.launches = 0
@@ -366,17 +282,10 @@ def gaussian_coupling_window(
     nx = grid.shape[0]
     cap = cfg.slot_capacity
     ncells = grid.ncells
-    Vc = grid.cell_volume
     W = window_size(N, nx, cfg.planes_window)
     bins = window_bins(pf, grid, cap, W, with_angvel=cfg.use_torque)
 
-    in_fields = [fluid_u, grad_p, div_tau]
-    if cfg.use_torque:
-        in_fields.append(curl_u)
-    if cfg.use_added_mass:
-        in_fields.append(ddt_u)
-    in_fields.append(prev_alpha)
-    F = cp._stack_channels(in_fields)
+    F = _input_stack(fluid_u, grad_p, div_tau, ddt_u, curl_u, prev_alpha, cfg)
 
     # every window is read up to its plane's count, for every
     # cfg.window_dynamic (rows past the count carry y = -1 either way)
@@ -384,28 +293,6 @@ def gaussian_coupling_window(
         pad_wrap_zero(F, periodic), bins.dat_win, grid, periodic, cfg, 0,
         nu, rho_f, counts=bins.counts)
     fields = _stack_epilogue(stks, combos).reshape(8, ncells)
-
-    pvol, up = fields[0], fields[1:4]
-    alpha = torch.clamp(1.0 - pvol / Vc, min=cfg.alpha_min)
-    u_particle = up / Vc
-    u_source_drag = fields[4]
-    u_source = u_source_drag[None] * u_particle + fields[5:8]
-
     res = _unbin_rows(pres, bins.cell_sorted, bins.rank, bins.keep, ncells,
                       cfg)[bins.inv_order]
-    if pres.shape[0] == 4:
-        res_force, res_torque, res_found = (
-            res[:, 0:3], torch.zeros_like(res[:, 0:3]), res[:, 3])
-    else:
-        res_force, res_torque, res_found = res[:, 0:3], res[:, 3:6], res[:, 6]
-
-    return cp.CouplingResult(
-        force=res_force,
-        torque=res_torque,
-        alpha=alpha.reshape(grid.shape),
-        u_particle=u_particle.reshape((3,) + grid.shape),
-        u_source=u_source.reshape((3,) + grid.shape),
-        u_source_drag=u_source_drag.reshape(grid.shape),
-        found=res_found > 0.5,
-        n_overflow=bins.n_overflow,
-    )
+    return _coupling_result(fields, res, bins.n_overflow, grid, cfg)
