@@ -13,23 +13,34 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
   * the planes slice: the same case with the CLI's `--fast` coupling
     (planes exchange, fused kernel);
   * the two-kernel planes path (`fused_planes=False`);
+  * the CLI slice: `python -m yade_openfoam_coupling_tpu_torch pimplefoam
+    <case>` on a 128^3 channel case directory written to a temporary
+    directory, 100k random particles, 20 steps (sparse exchange with
+    kernel B3, one Verlet list per step, mgpcg); then the configuration the
+    CLI's set-up builds, through the bench's checks, and one 10-step chunk
+    of it with `use_pallas` (kernel B2 in every matvec on sides >= 8);
 then holds the 4-slab chunked planes exchange against the whole-grid one,
 checks the bench's health conditions and that each path went through its
 kernels, and checks the CUDA path against the CPU path of the same port
-on a small case for both exchanges.
+on a small case for the window, planes and sparse exchanges.
 
 Prints the card's name and power limit, one JSON line describing the
-kernels, and as its last line {"ok": true, "device": {...}}. Exits non-zero
-without printing that line when there is no CUDA device, when a kernel
-does not build or disagrees, or when any check fails.
+kernels (times, the least time the card could take, and a PyTorch call's
+time where one computes the same function), and as its last line
+{"ok": true, "device": {...}}. Exits non-zero without printing that line
+when there is no CUDA device, when a kernel does not build or disagrees,
+or when any check fails.
 """
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -38,6 +49,10 @@ STEPS_PER_RUN, TIMED_RUNS = 10, 2
 KERNEL_RTOL = 1e-5
 JAX_OPS = "yade_openfoam_coupling_tpu/ops/"
 PORT_CSRC = "yade_openfoam_coupling_tpu_torch/csrc/"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+CLI_ARGS = ["--random-particles", str(N_PARTICLES), "--radius", str(RADIUS), "--kn", "100",
+            "--dem-substeps", "4", "--chunk", "10"]
 
 
 def bench_config(nx):
@@ -124,6 +139,34 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take for the work: the bytes it must
+    move at the HBM rate, or its float32 operations at the peak rate,
+    whichever is longer. -> {"bound_ms", "bound_by"}."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def exchange_flops(n_occ, n_off, C_in):
+    """Operations of a slot exchange over n_occ occupied slots: per stencil
+    offset three Gaussian factors and a weight, C_in interpolation and 8
+    deposit multiply-adds; ~100 for the force laws."""
+    return n_occ * (n_off * (2 * C_in + 16 + 10) + 100)
+
+
+def slot_table_bytes(D):
+    """What a planes kernel must read of the slot table D (C_d, cap, ncl):
+    the radius plane for every slot, the other channels for the occupied
+    slots only."""
+    n_occ = int((D[6] > 0).sum())
+    return nbytes(D[6]) + (D.shape[0] - 1) * n_occ * D.element_size(), n_occ
+
+
 def check_close(kernel, name, k, p):
     """The kernel's output k against the plain version's p: same shape,
     finite, and within KERNEL_RTOL of each output channel's scale (f32 sums
@@ -188,7 +231,13 @@ def window_kernel_phase(cfg, device, extras=False):
           f"(within {KERNEL_RTOL:g} of each channel's scale)", flush=True)
     ms = cuda_ms(lambda: cw.window_exchange_padded(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: cw.window_exchange_padded_reference(*args, **kw), 5)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    # inputs: Fp, the live window rows, counts; outputs: the stacks, pres
+    live = int(bins.counts.clamp(max=W).sum())
+    n_bytes = (nbytes(Fp, bins.counts, *kern[::2])
+               + live * bins.dat_win.shape[1] * bins.dat_win.element_size())
+    n_occ = int(bins.keep.sum())
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            **bound(n_bytes, exchange_flops(n_occ, 19, Fp.shape[0])), "library_ms": None}
 
 
 def planes_kernel_phase(cfg, device):
@@ -203,13 +252,16 @@ def planes_kernel_phase(cfg, device):
                                  packed_bin=ccfg.packed_bin).D
     out = {}
 
+    d_bytes, n_occ = slot_table_bytes(D)
+    flops = exchange_flops(n_occ, 19, Fp.shape[0])
     args = (Fp, D, grid, periodic, ccfg, 0, nu, rho_f)
     plain = cpp.fused_exchange_padded_reference(*args)
     kern = cpp.fused_exchange_padded(*args)
     err = max(check_close("planes_fused", "stks", kern[0], plain[0]),
               check_close("planes_fused", "pres", kern[2], plain[2]))
     out["planes_fused"] = (err, cuda_ms(lambda: cpp.fused_exchange_padded(*args), 20),
-                           cuda_ms(lambda: cpp.fused_exchange_padded_reference(*args), 5))
+                           cuda_ms(lambda: cpp.fused_exchange_padded_reference(*args), 5),
+                           bound(nbytes(Fp, kern[0], kern[2]) + d_bytes, flops))
 
     iargs = (Fp, D, grid, periodic, ccfg, 0)
     G_p, n_p = cpp.interp_planes_padded_reference(*iargs)
@@ -217,7 +269,8 @@ def planes_kernel_phase(cfg, device):
     err = max(check_close("planes_interp", "G", G_k, G_p),
               check_close("planes_interp", "norm", n_k, n_p))
     out["planes_interp"] = (err, cuda_ms(lambda: cpp.interp_planes_padded(*iargs), 20),
-                            cuda_ms(lambda: cpp.interp_planes_padded_reference(*iargs), 5))
+                            cuda_ms(lambda: cpp.interp_planes_padded_reference(*iargs), 5),
+                            bound(nbytes(Fp, G_k, n_k) + d_bytes, flops))
 
     V, _, _, _ = cpp._physics_planes(D, G_p, n_p, grid.cell_volume, nu, rho_f, ccfg)
     inv = 1.0 / n_p.where(n_p > 0, 1.0)
@@ -226,35 +279,247 @@ def planes_kernel_phase(cfg, device):
     plain = cpp.deposit_stacks_reference(*dargs)
     kern = cpp.deposit_stacks(*dargs)
     err = check_close("planes_deposit", "stks", kern[0], plain[0])
+    # the occupied slots' V, the radius plane and their positions in D
+    v_bytes = Vn.shape[0] * n_occ * Vn.element_size()
     out["planes_deposit"] = (err, cuda_ms(lambda: cpp.deposit_stacks(*dargs), 20),
-                             cuda_ms(lambda: cpp.deposit_stacks_reference(*dargs), 5))
-    for name, (err, ms, plain_ms) in out.items():
+                             cuda_ms(lambda: cpp.deposit_stacks_reference(*dargs), 5),
+                             bound(nbytes(kern[0], D[6]) + v_bytes + 3 * n_occ * 4, flops))
+    for name, (err, ms, plain_ms, _) in out.items():
         print(f"kernel {name}: max_abs_err {err:.3e} (within {KERNEL_RTOL:g} of each "
               f"channel's scale); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return {name: {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-            for name, (err, ms, plain_ms) in out.items()}
+    return {name: {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": None}
+            for name, (err, ms, plain_ms, b) in out.items()}
+
+
+def rolls_kernel_phase(device, S=27, C=4):
+    """B3 against its plain version at the CLI slice's shapes: a seeded
+    offset-major anchor buffer (S*C, ncells + 1) seen as (S, C, 128^3), as
+    the sparse deposit hands it over; the cube stencil. Times the kernel,
+    the plain roll loop and one circular Conv3d with one-hot weights
+    w[c, o*C + c, 1 - dx, 1 - dy, 1 - dz] = 1 (TF32 off), which computes
+    the same function and which the port does not use."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
+    from yade_openfoam_coupling_tpu_torch.ops import rolls
+
+    offsets = cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube"))
+    assert len(offsets) == S
+    shape = (NX,) * 3
+    ncells = NX ** 3
+    gen = torch.Generator(device=device).manual_seed(3)
+    buf = torch.randn((S * C, ncells + 1), generator=gen, device=device)
+    bufT = buf[:, :ncells].view((S, C) + shape)
+    plain = rolls.distribute_rolls_reference(bufT, offsets)
+    kern = rolls.distribute_rolls(bufT, offsets)
+    err = check_close("rolls_deposit", "out", kern, plain)
+
+    conv = torch.nn.Conv3d(S * C, C, 3, padding=1, padding_mode="circular", bias=False,
+                           device=device)
+    with torch.no_grad():
+        conv.weight.zero_()
+        for o, (dx, dy, dz) in enumerate(offsets):
+            for c in range(C):
+                conv.weight[c, o * C + c, 1 - dx, 1 - dy, 1 - dz] = 1.0
+        x = bufT.reshape((1, S * C) + shape).contiguous()
+        lib = conv(x)[0]
+        lib_err = float((lib - plain).abs().max())
+        library_ms = cuda_ms(lambda: conv(x), 5)
+    del x
+    ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20)
+    plain_ms = cuda_ms(lambda: rolls.distribute_rolls_reference(bufT, offsets), 5)
+    print(f"kernel rolls_deposit (S={S}, C={C}, {NX}^3): max_abs_err {err:.3e}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, Conv3d {library_ms:.3f} ms "
+          f"(its max abs difference {lib_err:.3e})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(bufT, kern), S * C * ncells), "library_ms": library_ms}
+
+
+def laplacian_kernel_phase(device):
+    """B2 against its plain version at 128^3: seeded p padded with the
+    channel's pressure BCs (periodic x/y, zero-gradient z) and random face
+    coefficients. No single PyTorch call computes it (library_ms null)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
+    from yade_openfoam_coupling_tpu_torch.ops.grid import Grid, pad_scalar
+    from yade_openfoam_coupling_tpu_torch.ops.stencil import laplacian_facegamma_padded
+
+    grid = Grid.cube(NX, 1e-3 * NX)
+    gen = torch.Generator(device=device).manual_seed(4)
+    pp = pad_scalar(torch.randn(grid.shape, generator=gen, device=device),
+                    FluidBCs.channel_z().p)
+    n = NX
+    gamma_f = tuple(0.5 + torch.rand(s, generator=gen, device=device)
+                    for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+    plain = laplacian_facegamma_padded(gamma_f, pp, grid)
+    kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
+    err = check_close("laplacian", "out", kern[None], plain[None])
+    ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50)
+    plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
+    print(f"kernel laplacian ({NX}^3): max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
+
+
+def write_cli_case(d: Path, n=NX, length=1e-3 * NX):
+    """The channel case directory of the CLI slice (ASCII OpenFOAM
+    dictionaries): one hex block, cyclic x/y patches, no-slip z walls with
+    zero-gradient p, nu 1e-6, densities 2500/1000, gravity -z, LES kEqn,
+    deltaT 5e-5, GAMG pressure (mgpcg) to tolerance 0 / relTol 0 in at most
+    200 iterations, PIMPLE 1 outer x 2 correctors."""
+    for sub in ("system", "constant", "0"):
+        (d / sub).mkdir(parents=True, exist_ok=True)
+    L = length
+    v = [(0, 0, 0), (L, 0, 0), (L, L, 0), (0, L, 0), (0, 0, L), (L, 0, L), (L, L, L), (0, L, L)]
+    (d / "system/blockMeshDict").write_text(
+        "convertToMeters 1; vertices ( " + " ".join(f"({a} {b} {c})" for a, b, c in v)
+        + f" ); blocks ( hex (0 1 2 3 4 5 6 7) ({n} {n} {n}) simpleGrading (1 1 1) );")
+    cyc = " ".join(f"{p} {{ type cyclic; }}" for p in ("left", "right", "front", "back"))
+    (d / "0/U").write_text(f"boundaryField {{ {cyc} bottom {{ type noSlip; }} "
+                           "top { type noSlip; } }")
+    (d / "0/p").write_text(f"boundaryField {{ {cyc} bottom {{ type zeroGradient; }} "
+                           "top { type zeroGradient; } }")
+    (d / "constant/transportProperties").write_text(
+        "nu nu [0 2 -1 0 0 0 0] 1e-06; partDensity 2500; fluidDensity 1000;")
+    (d / "constant/g").write_text("dimensions [0 1 -2 0 0 0 0]; value (0 0 -9.81);")
+    (d / "constant/turbulenceProperties").write_text(
+        "simulationType LES; LES { LESModel kEqn; }")
+    (d / "system/controlDict").write_text("deltaT 5e-05; endTime 1000; writeInterval 1000;")
+    (d / "system/fvSolution").write_text(
+        "solvers { p { solver GAMG; tolerance 0; relTol 0; maxIter 200; } }"
+        " PIMPLE { nOuterCorrectors 1; nCorrectors 2; }")
+    return d
+
+
+def cli_phase(card, steps=20):
+    """`pimplefoam <case>` through the CLI's own `main` on the card (its
+    default device): 100k random particles, `steps` steps. The launch
+    counts are set to 0 just before and read just after; B3 must have run
+    at least twice per step (the two deposits of each sparse exchange).
+    -> the launch counts."""
+    from yade_openfoam_coupling_tpu_torch import cli
+
+    case = write_cli_case(Path(tempfile.mkdtemp(prefix="cli_case_")))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["pimplefoam", str(case), *CLI_ARGS, "--max-steps", str(steps)])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        shutil.rmtree(case)
+    if rc != 0:
+        raise AssertionError(f"pimplefoam exited with {rc}")
+    if launches["rolls_deposit"] < 2 * steps:
+        raise AssertionError(f"CLI run: B3 launched {launches['rolls_deposit']} times in "
+                             f"{steps} steps")
+    print(f"CLI pimplefoam, {N_PARTICLES} random particles, {NX}^3: {steps} steps in "
+          f"{wall:.2f} s with set-up [{card}]; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
+def cli_config():
+    """The CaseConfig the CLI's set-up function builds for the CLI slice
+    (its initial state, built on the card too, is dropped)."""
+    from yade_openfoam_coupling_tpu_torch import cli
+
+    case = write_cli_case(Path(tempfile.mkdtemp(prefix="cli_case_")))
+    try:
+        args = cli.build_parser().parse_args(["pimplefoam", str(case), *CLI_ARGS])
+        cfg, _, _ = cli.setup(args, "pimple")
+    finally:
+        shutil.rmtree(case)
+    return cfg
+
+
+def stage_phase(cfg, device, card, label):
+    """Where one STEPS_PER_RUN-step chunk's time goes, after a warm-up
+    chunk: synchronised host-clock time in the exchange, the DEM substeps,
+    the turbulence correction and the PIMPLE step, and inside the last in
+    the pressure solves. The synchronisations add a few ms per step, so
+    the stages are read as shares, not as the slice's rate."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+    from yade_openfoam_coupling_tpu_torch.models import turbulence
+    from yade_openfoam_coupling_tpu_torch.ops import dem, pressure
+
+    spots = [(cd, "exchange"), (dem, "dem_substeps"), (turbulence, "correct"),
+             (cd, "pimple_step"), (pressure, "solve_pressure")]
+    spent = dict.fromkeys((name for _, name in spots), 0.0)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            return out
+        return run
+
+    state = initial_state(cfg, N_PARTICLES, device)
+    run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
+    state, _ = run(state)
+    originals = [(mod, name, getattr(mod, name)) for mod, name in spots]
+    try:
+        for mod, name, fn in originals:
+            setattr(mod, name, timed(name, fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    per_step = {k: 1e3 * v / STEPS_PER_RUN for k, v in spent.items()}
+    print(f"{label} stages (ms/step, synchronised, {1e3 * wall / STEPS_PER_RUN:.1f} ms/step "
+          f"in all) [{card}]: " + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items()),
+          flush=True)
+
+
+def with_use_pallas(cfg):
+    pimple = cfg.pimple
+    return dataclasses.replace(cfg, pimple=dataclasses.replace(
+        pimple, pressure=dataclasses.replace(pimple.pressure, use_pallas=True)))
 
 
 def launch_counters():
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, rolls
     return {"window_exchange": cw.window_exchange_padded,
             "planes_fused": cpp.fused_exchange_padded,
             "planes_interp": cpp.interp_planes_padded,
-            "planes_deposit": cpp.deposit_stacks}
+            "planes_deposit": cpp.deposit_stacks,
+            "rolls_deposit": rolls.distribute_rolls,
+            "laplacian": fused_stencil.laplacian_facegamma_fused}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS):
     """One path at full size, as bench.py runs it: set-up and a warm-up
     chunk, then `timed_runs` timed chunks of STEPS_PER_RUN steps. Every
     launch count is set to 0 just before and read just after; each kernel
-    in `kernels` must have launched at least once per step. -> counts."""
+    in `kernels` (a list, or a dict of launches per step) must have
+    launched at least that often per step (once for a list). -> (counts,
+    p_iters)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    per_step = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
+    reset_launches()
     t0 = time.perf_counter()
     state = initial_state(cfg, N_PARTICLES, device)
     run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
@@ -272,7 +537,7 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS):
         all_diags.append(diags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches()
     n_steps = STEPS_PER_RUN * (1 + timed_runs)
 
     d = {k: torch.cat([getattr(x, k).reshape(-1) for x in all_diags]).cpu().numpy()
@@ -293,17 +558,17 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS):
                     ("vel", ps.vel), ("nut", state.turb.nut)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{label}: non-finite values in {name}")
-    for name in kernels:
-        if launches[name] < n_steps:
+    for name, k in per_step.items():
+        if launches[name] < k * n_steps:
             raise AssertionError(f"{label}: kernel {name} launched {launches[name]} "
-                                 f"times in {n_steps} steps")
+                                 f"times in {n_steps} steps (at least {k} per step)")
     rate = (f"{timed_runs * STEPS_PER_RUN / wall:.3f} coupled steps/s [{card}]; "
             if timed_runs else "")
     print(f"{label} {N_PARTICLES} particles {NX}^3: {rate}p_iters "
           f"{d['p_iters'].min()}-{d['p_iters'].max()}, p residual {p_final:.3e}, "
           f"continuity {cont:.3e}, overflows {n_over}, launches "
-          f"{ {k: launches[k] for k in kernels} } in {n_steps} steps", flush=True)
-    return launches
+          f"{ {k: launches[k] for k in per_step} } in {n_steps} steps", flush=True)
+    return launches, d["p_iters"]
 
 
 def chunked_phase(cfg, device):
@@ -392,33 +657,56 @@ def main() -> int:
 
     cfg = bench_config(NX)
     pcfg = planes_config(cfg)
-    window = window_kernel_phase(cfg, device)
-    window["torque_added_mass"] = window_kernel_phase(cfg, device, extras=True)
-    planes = planes_kernel_phase(pcfg, device)
-    for name, e in [("window_exchange", window), *planes.items()]:
-        print(f"{name} at {NX}^3/{N_PARTICLES}: kernel {e['ms']:.3f} ms, "
-              f"plain {e['plain_ms']:.3f} ms [{smi}]", flush=True)
+    kern = {"window_exchange": window_kernel_phase(cfg, device)}
+    e = window_kernel_phase(cfg, device, extras=True)
+    print(f"window_exchange (torque, added mass): kernel {e['ms']:.4f} ms, plain "
+          f"{e['plain_ms']:.4f} ms [{smi}]", flush=True)
+    kern.update(planes_kernel_phase(pcfg, device))
+    kern["rolls_deposit"] = rolls_kernel_phase(device)
+    kern["laplacian"] = laplacian_kernel_phase(device)
+    for name, e in kern.items():
+        print(f"{name}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library "
+              f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} "
+              f"ms [{smi}]", flush=True)
 
+    # each path's launches, counted from 0 just before it and read just after
     launches = {}
-    runs = slice_phase(cfg, device, smi, "window slice", ["window_exchange"])
+    runs, _ = slice_phase(cfg, device, smi, "window slice", ["window_exchange"])
     launches["window_exchange"] = runs["window_exchange"]
-    runs = slice_phase(pcfg, device, smi, "planes slice", ["planes_fused"])
+    runs, _ = slice_phase(pcfg, device, smi, "planes slice", ["planes_fused"])
     launches["planes_fused"] = runs["planes_fused"]
-    runs = slice_phase(planes_config(cfg, fused_planes=False), device, smi,
-                       "two-kernel planes slice", ["planes_interp", "planes_deposit"],
-                       timed_runs=0)
+    runs, _ = slice_phase(planes_config(cfg, fused_planes=False), device, smi,
+                          "two-kernel planes slice", ["planes_interp", "planes_deposit"],
+                          timed_runs=0)
     launches["planes_interp"] = runs["planes_interp"]
     launches["planes_deposit"] = runs["planes_deposit"]
+    cli_phase(smi)
+    ccfg = cli_config()
+    runs, iters = slice_phase(ccfg, device, smi, "CLI slice", {"rolls_deposit": 2})
+    launches["rolls_deposit"] = runs["rolls_deposit"]
+    runs, iters_pal = slice_phase(with_use_pallas(ccfg), device, smi,
+                                  "CLI slice, use_pallas", {"rolls_deposit": 2,
+                                                            "laplacian": 1}, timed_runs=0)
+    launches["laplacian"] = runs["laplacian"]
+    print(f"CLI slice p_iters per step: {iters.tolist()}; with use_pallas: "
+          f"{iters_pal.tolist()}", flush=True)
+    stage_phase(ccfg, device, smi, "CLI slice")
+    stage_phase(with_use_pallas(ccfg), device, smi, "CLI slice, use_pallas")
     chunked_phase(pcfg, device)
     small_check(device, bench_config(16), "window")
     small_check(device, planes_config(bench_config(16)), "planes")
+    small_check(device, dataclasses.replace(with_use_pallas(ccfg), grid=bench_config(16).grid),
+                "sparse, use_pallas")
 
     sources = {"window_exchange": ("window_exchange.cu", "coupling_window.py:162"),
                "planes_fused": ("planes_exchange.cu", "coupling_planes.py:508"),
                "planes_interp": ("planes_exchange.cu", "coupling_planes.py:278"),
-               "planes_deposit": ("planes_exchange.cu", "coupling_planes.py:404")}
+               "planes_deposit": ("planes_exchange.cu", "coupling_planes.py:404"),
+               "rolls_deposit": ("rolls_deposit.cu", "pallas_rolls.py:39"),
+               "laplacian": ("laplacian.cu", "pallas_stencil.py:37")}
     entries = []
-    for name, e in [("window_exchange", window), *planes.items()]:
+    for name, e in kern.items():
         src, replaces = sources[name]
         entries.append({"name": name, "route": "cuda", "source": PORT_CSRC + src,
                         "replaces": JAX_OPS + replaces, "launches": launches[name], **e})

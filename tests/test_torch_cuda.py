@@ -15,8 +15,21 @@ import torch
 from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
 from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
 from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
+from yade_openfoam_coupling_tpu_torch.ops import rolls
 from yade_openfoam_coupling_tpu_torch.ops.coupling_planes import pad_wrap_zero
-from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
+from yade_openfoam_coupling_tpu_torch.ops.grid import (
+    DIRICHLET,
+    NEUMANN,
+    FaceBC,
+    FieldBC,
+    Grid,
+    pad_scalar,
+)
+from yade_openfoam_coupling_tpu_torch.ops.stencil import (
+    face_interp_all_padded,
+    laplacian_facegamma_padded,
+)
 
 GRID = Grid.box((12, 10, 14), (0.012, 0.010, 0.014))
 
@@ -188,3 +201,61 @@ def test_planes_interp_and_deposit_kernels_match_plain(cuda, periodic, extras, s
     assert cpp.deposit_stacks.launches == before + 1
     assert kern[1] == plain[1]
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+
+
+ASYMMETRIC = np.array([[1, 0, 0], [0, -1, 1], [-1, 1, -1], [0, 0, 1], [1, -1, 0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets,C", [
+    (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4),
+    (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")), 8),
+    (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")), 1),
+    (ASYMMETRIC, 3),
+])
+def test_rolls_kernel_matches_plain(cuda, offsets, C):
+    """B3 (csrc/rolls_deposit.cu) against the plain roll loop, bit for bit
+    (the same sum order), on a strided view of an offset-major buffer with
+    a scrap column, as the deposit hands it over (also with one channel,
+    whose size-1 dim carries no stride); the asymmetric offset set pins the
+    roll direction."""
+    S, shape = len(offsets), (12, 10, 14)
+    ncells = int(np.prod(shape))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn((S * C, ncells + 1), generator=gen, device=cuda)
+    bufT = buf[:, :ncells].view((S, C) + shape)
+    plain = rolls.distribute_rolls_reference(bufT, offsets)
+    before = rolls.distribute_rolls.launches
+    kern = rolls.distribute_rolls(bufT, offsets)
+    torch.cuda.synchronize()
+    assert rolls.distribute_rolls.launches == before + 1
+    assert torch.equal(kern, plain)
+    with pytest.raises(ValueError, match="strided"):
+        rolls.distribute_rolls(bufT.transpose(3, 4), offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", [
+    FieldBC.periodic(),
+    FieldBC.box(NEUMANN),
+    FieldBC(((FaceBC("periodic"),) * 2, (FaceBC(NEUMANN),) * 2,
+             (FaceBC(DIRICHLET, 0.3), FaceBC(DIRICHLET, -0.2)))),
+])
+def test_laplacian_kernel_matches_plain(cuda, bc):
+    """B2 (csrc/laplacian.cu) against the plain stencil to 1e-5 of scale on
+    an anisotropic box, with periodic, Neumann and nonzero-Dirichlet
+    ghosts."""
+    grid = Grid.box((12, 10, 14), (0.012, 0.02, 0.007))
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    p = torch.randn(grid.shape, generator=gen, device=cuda)
+    gamma = 1.0 + 0.5 * torch.rand(grid.shape, generator=gen, device=cuda)
+    gamma_f = face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN)))
+    pp = pad_scalar(p, bc)
+    plain = laplacian_facegamma_padded(gamma_f, pp, grid)
+    before = fs.laplacian_facegamma_fused.launches
+    kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
+    torch.cuda.synchronize()
+    assert fs.laplacian_facegamma_fused.launches == before + 1
+    _assert_channels_close(kern[None], plain[None])
+    with pytest.raises(ValueError, match="gamma_y"):
+        fs.laplacian_facegamma_fused((gamma_f[0], gamma_f[1][:, :-1], gamma_f[2]), pp, grid)

@@ -87,7 +87,8 @@ def test_config_fields_and_defaults_match(name):
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor the JAX
-    package (checked in a fresh interpreter)."""
+    package (checked in a fresh interpreter), the front door's modules and
+    the copied foamdict/foammesh included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import yade_openfoam_coupling_tpu_torch as p\n"
@@ -96,13 +97,18 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'yade_openfoam_coupling_tpu'\n"
         "       or m.startswith('yade_openfoam_coupling_tpu.')]\n"
-        "n = sum(m.startswith('yade_openfoam_coupling_tpu_torch') for m in sys.modules)\n"
-        "print(n, bad)\n"
+        "mods = sorted(m for m in sys.modules if m.startswith('yade_openfoam_coupling_tpu_torch'))\n"
+        "print(len(mods), bad, ' '.join(mods))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 20
+    mods = set(proc.stdout.split())
+    for name in ("utils.foamdict", "utils.foammesh", "utils.config", "utils.checkpoint",
+                 "utils.logging", "models.runner", "cli", "cases.builders", "ops.rolls",
+                 "ops.fused_stencil"):
+        assert f"yade_openfoam_coupling_tpu_torch.{name}" in mods, name
 
 
 def test_state_round_trip_exact():
@@ -141,7 +147,7 @@ def test_case_config_from_and_unported_options_raise():
     assert isinstance(port.dem.params, tdem.ContactParams)
     assert _plain(port) == _plain(cfg)
     for bad in (dataclasses.replace(port, solver="piso"),
-                dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="sparse")),
+                dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="slots")),
                 dataclasses.replace(port, dem=tdem.DEMConfig(shear_history=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP A1[123]"):
             tcd.make_scan_fn(bad, 1)

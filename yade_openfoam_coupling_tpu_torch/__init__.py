@@ -7,9 +7,13 @@ It imports torch and numpy only, never jax.
 
 Plain tensor code is PyTorch; the Pallas kernels of the window and planes
 exchanges (`coupling_window._window_kernel`, `coupling_planes._fused_kernel`,
-`_interp_kernel`, `_deposit_kernel`) are CUDA kernels written by hand for
-Hopper (`csrc/window_exchange.cu`, `csrc/planes_exchange.cu`, sharing
-`csrc/exchange_common.cuh`), built at first use into `_build/`.
+`_interp_kernel`, `_deposit_kernel`), of the sparse deposit
+(`pallas_rolls._roll_kernel`) and of the pressure matvec
+(`pallas_stencil._lap_kernel`) are CUDA kernels written by hand for Hopper
+(`csrc/window_exchange.cu`, `csrc/planes_exchange.cu`, sharing
+`csrc/exchange_common.cuh`; `csrc/rolls_deposit.cu`; `csrc/laplacian.cu`),
+built at first use into `_build/`. `python -m yade_openfoam_coupling_tpu_torch
+pimplefoam <case>` is the command-line front door (`cli.py`).
 """
 
 import torch

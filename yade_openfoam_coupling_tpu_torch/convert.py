@@ -15,7 +15,7 @@ import torch
 
 from .models import coupled, fields, pimple, piso, turbulence
 from .ops import coupling, dem, grid, pressure
-from .utils import diagnostics
+from .utils import config, diagnostics
 
 # the named-tuple parts of a SimState
 _SIM_PARTS = {"fluid": fields.FluidState, "particles": fields.ParticleState,
@@ -27,7 +27,7 @@ _CONFIG_CLASSES = {
         coupled.TransportProperties, coupled.CaseConfig, coupling.CouplingConfig,
         dem.DEMConfig, dem.ContactParams, pressure.PressureSolverConfig,
         pressure.MGConfig, pimple.PIMPLEConfig, turbulence.TurbulenceConfig,
-        diagnostics.TimeControls,
+        diagnostics.TimeControls, config.RunControls,
     )
 }
 

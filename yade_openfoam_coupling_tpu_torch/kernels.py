@@ -20,6 +20,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
@@ -31,6 +33,8 @@ ENTRY_POINTS = {
     "window_exchange": {"yofc_param_counts": 2, "yofc_window_exchange": 10},
     "planes_exchange": {"yofc_param_counts": 2, "yofc_planes_fused": 8,
                         "yofc_planes_interp": 7, "yofc_planes_deposit": 6},
+    "rolls_deposit": {"yofc_rolls_deposit": 4},
+    "laplacian": {"yofc_laplacian": 8},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -91,6 +95,19 @@ def build() -> Dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def call(name: str, fn: str, kernel: str, *args, device) -> None:
+    """Call entry point ``fn`` of library ``name`` on the current stream of
+    ``device``: tensors pass their data pointers, numpy arrays their host
+    pointers, None a null pointer. Raise if the entry point reports a CUDA
+    error (a launch that was refused never runs, and no synchronize would
+    report it)."""
+    ptrs = [None if a is None else a.ctypes.data if hasattr(a, "ctypes") else a.data_ptr()
+            for a in args]
+    err = getattr(library(name), fn)(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
 def library(name: str) -> ctypes.CDLL:

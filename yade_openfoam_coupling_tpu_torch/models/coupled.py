@@ -2,16 +2,18 @@
 `yade_openfoam_coupling_tpu/models/coupled.py`).
 
 One coupled step: Courant number and adaptive dt, the coupling inputs,
-the window or planes exchange (whole grid, or in x-slabs under
-``planes_chunks > 1``), the DEM substeps on the frozen Verlet list, the kEqn
-correction and the PIMPLE step, then the diagnostics. `make_scan_fn` runs
-chunks of [one Verlet-list rebuild -> K frozen-list steps] as a Python loop
-and stacks the per-step diagnostics along a leading axis.
+the sparse, window or planes exchange (the sparse one in particle chunks
+under ``particle_chunks > 1``, the planes one in x-slabs under
+``planes_chunks > 1``), the DEM substeps (on the frozen Verlet list, or on
+one list built per step, or on all pairs), the turbulence correction and
+the PIMPLE step, then the diagnostics. `make_scan_fn` runs the steps as a
+Python loop, in chunks of [one Verlet-list rebuild -> K frozen-list steps]
+under ``list_reuse``, and stacks the per-step diagnostics along a leading
+axis.
 
-Not ported yet: the PISO solver (ROADMAP A13), the sparse and slots
-exchanges, `gaussian_coupling_chunked` and the point-force path (A12), the
-per-step conditional list rebuild, shear history and dynamic substeps
-(A11), obstacles (A13).
+Not ported yet: the PISO solver and the point-force path (ROADMAP A13),
+the slots exchange (A12), the per-step conditional list rebuild, shear
+history and dynamic substeps (A11), obstacles (A13).
 """
 
 from __future__ import annotations
@@ -94,10 +96,12 @@ def _check_supported(cfg: CaseConfig) -> None:
 
 
 def _check_exchange(c: cp.CouplingConfig) -> None:
-    if not c.gaussian or c.exchange not in ("window", "planes"):
+    if not c.gaussian:
         raise NotImplementedError(
-            f"coupling exchange={c.exchange!r} gaussian={c.gaussian}: "
-            "not ported yet (ROADMAP A12)")
+            "point-force coupling (gaussian=False): not ported yet (ROADMAP A13)")
+    if c.exchange not in ("sparse", "window", "planes"):
+        raise NotImplementedError(
+            f"coupling exchange={c.exchange!r}: not ported yet (ROADMAP A12)")
 
 
 def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
@@ -124,8 +128,8 @@ def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
 def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
              tp: TransportProperties, cfg: cp.CouplingConfig, dt,
              ctx=None) -> cp.CouplingResult:
-    """One in-memory coupling exchange (`setParticleAction`); the window
-    and planes exchanges are ported."""
+    """One in-memory coupling exchange (`setParticleAction`), dispatched as
+    in the JAX package."""
     from ..parallel.ctx import LOCAL
     ctx = ctx if ctx is not None else LOCAL
     _check_exchange(cfg)
@@ -134,8 +138,12 @@ def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
     if cfg.exchange == "planes":
         fn = (gaussian_coupling_planes_chunked if cfg.planes_chunks > 1
               else gaussian_coupling_planes)
-    else:
+    elif cfg.exchange == "window":
         fn = gaussian_coupling_window
+    elif cfg.particle_chunks > 1:
+        fn = cp.gaussian_coupling_chunked
+    else:
+        fn = cp.gaussian_coupling
     return fn(
         pf, fs.u, grad_p, div_tau, ddt_u, curl_u,
         grid, bcs.periodic_axes(), tp.nu, tp.rho_f, dt, cfg,
@@ -275,7 +283,8 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
         n_found=ctx.sum(torch.sum(cres.found.to(torch.int32))),
         max_particle_speed=max_speed,
         n_contact_overflow=ctx.sum(n_overflow).to(torch.int32),
-        n_coupling_overflow=ctx.sum(cres.n_overflow).to(torch.int32),
+        n_coupling_overflow=ctx.sum(torch.as_tensor(cres.n_overflow, dtype=torch.int32,
+                                                     device=dev)),
         n_shard_overflow=izero,
         n_dem_sub=torch.tensor(n_sub, dtype=torch.int32, device=dev),
     )

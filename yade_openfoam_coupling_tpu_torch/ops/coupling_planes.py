@@ -412,18 +412,14 @@ def _check_cuda(kernel: str, name: str, t: torch.Tensor, shape, device,
 def _launch(lib_name: str, fn: str, kernel: str, ip, fp, *tensors, device):
     """Call one entry point of a kernel library on the current stream;
     raise if the library's parameter layout differs or a launch fails."""
-    from ..kernels import library
+    from ..kernels import call, library
     lib = library(lib_name)
     n_int, n_float = ctypes.c_int(), ctypes.c_int()
     lib.yofc_param_counts(ctypes.byref(n_int), ctypes.byref(n_float))
     if (n_int.value, n_float.value) != (ip.size, fp.size):
         raise RuntimeError(f"{kernel}: parameter layout of the library "
                            f"{(n_int.value, n_float.value)} != {(ip.size, fp.size)}")
-    ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    err = getattr(lib, fn)(ip.ctypes.data, fp.ctypes.data, *ptrs,
-                           torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    call(lib_name, fn, kernel, ip, fp, *tensors, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""Discrete-element engine (port of the main path of
-`yade_openfoam_coupling_tpu/ops/dem.py`): linear spring-dashpot contacts
-with Coulomb-capped viscous friction, a persistent Verlet candidate list
-built from uniform hash bins, wall contacts against the box faces, and
-velocity-Verlet substeps with the contact force carried across calls.
+"""Discrete-element engine (port of `yade_openfoam_coupling_tpu/ops/dem.py`):
+linear spring-dashpot contacts with Coulomb-capped viscous friction, all
+pairs or a Verlet candidate list built from uniform hash bins (persistent,
+or one per `dem_substeps` call), wall contacts against the box faces, and
+velocity-Verlet substeps, optionally with the contact force carried across
+calls.
 
-Not ported yet (ROADMAP A11): `allpairs` and `cell_list_contact_forces`,
-shear history, dynamic substeps, `contact_mode="step"`.
+Not ported yet (ROADMAP A11): `cell_list_contact_forces`,
+``list_rebuild_every``, shear history, dynamic substeps,
+`contact_mode="step"`.
 """
 
 from __future__ import annotations
@@ -163,6 +165,25 @@ def _pair_force_cm(dx, vi, vj, wi, wj, ri, rj, mi, mj,
     f = tuple(torch.where(touching, f_n[k] + f_t[k], zero) for k in range(3))
     torque = tuple(torch.where(touching, c, zero) for c in _cross_cm(ci, f_t))
     return f, torque
+
+
+def allpairs_contact_forces(pos, vel, angvel, radius, active, grid: Grid, cfg: DEMConfig):
+    """Exact O(N^2) contact sums: every pair's force in (N, N) component
+    arrays, summed over partners."""
+    N = pos.shape[0]
+    p = cfg.params
+    m = particle_mass(radius, p.rho_p)
+    dx = _min_image(pos[:, None, :] - pos[None, :, :], grid, cfg.periodic)
+    valid = active[:, None] & active[None, :] & ~torch.eye(N, dtype=torch.bool,
+                                                           device=pos.device)
+    f, t = _pair_force_cm(
+        tuple(dx[..., c] for c in range(3)),
+        tuple(vel[:, None, c] for c in range(3)), tuple(vel[None, :, c] for c in range(3)),
+        tuple(angvel[:, None, c] for c in range(3)),
+        tuple(angvel[None, :, c] for c in range(3)),
+        radius[:, None], radius[None, :], m[:, None], m[None, :], p, valid)
+    return (torch.stack([torch.sum(c, dim=1) for c in f], dim=-1),
+            torch.stack([torch.sum(c, dim=1) for c in t], dim=-1))
 
 
 def _min_image(dx: torch.Tensor, grid: Grid, periodic) -> torch.Tensor:
@@ -422,10 +443,14 @@ class DEMForces(NamedTuple):
 
 def contact_forces(pos, vel, angvel, radius, active, grid, cfg: DEMConfig,
                    r_max: float, nbr=None):
-    if nbr is None:
-        raise NotImplementedError(
-            f"contact forces without a Verlet list ({cfg.neighbor!r}): {_A11}")
-    fc, tc = neighbor_contact_forces(nbr, pos, vel, angvel, radius, active, grid, cfg)
+    if nbr is not None:
+        fc, tc = neighbor_contact_forces(nbr, pos, vel, angvel, radius, active, grid, cfg)
+    elif cfg.neighbor == "allpairs":
+        fc, tc = allpairs_contact_forces(pos, vel, angvel, radius, active, grid, cfg)
+    elif cfg.neighbor == "cells":
+        raise NotImplementedError(f"cell_list_contact_forces: {_A11}")
+    else:
+        raise ValueError(f"unknown neighbor mode {cfg.neighbor!r}")
     fw, tw = wall_contact_forces(pos, vel, angvel, radius, active, grid, cfg)
     return fc + fw, tc + tw
 
@@ -436,21 +461,27 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
                  carried: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  dt_seq=None):
     """Advance the DEM state n_sub velocity-Verlet substeps under a constant
-    hydro force against the prebuilt Verlet list ``nbr``. Returns (pos, vel,
-    angvel, n_overflow) with n_overflow 0 (the build that produced the list
-    counted its own drops), plus the contact force/torque of the last
-    evaluation under ``cfg.carry_contact`` (the ``carried`` input of the
-    next call)."""
+    hydro force. With a prebuilt Verlet list ``nbr`` it is used as it is
+    and n_overflow is 0 (the build that produced the list counted its own
+    drops); without one, ``neighbor="cells"`` builds one list for the call
+    and returns its overflow count, and ``"allpairs"`` uses all pairs.
+    Returns (pos, vel, angvel, n_overflow), plus the contact force/torque
+    of the last evaluation under ``cfg.carry_contact`` (the ``carried``
+    input of the next call)."""
     if cfg.shear_history or shear is not None:
         raise NotImplementedError(f"shear history: {_A11}")
     if dt_seq is not None:
         raise NotImplementedError(f"dynamic substeps: {_A11}")
     if cfg.contact_mode != "substep":
         raise NotImplementedError(f"contact_mode={cfg.contact_mode!r}: {_A11}")
-    if nbr is None:
-        raise NotImplementedError(f"substeps without a prebuilt Verlet list: {_A11}")
     p = cfg.params
     dev = pos.device
+    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if nbr is None and cfg.neighbor == "cells":
+        if 0 < cfg.list_rebuild_every < n_sub:     # rebuilds inside the call
+            raise NotImplementedError(f"list_rebuild_every: {_A11}")
+        nbr, n_overflow = build_neighbor_list(pos, active, grid, cfg, r_max,
+                                              return_overflow=True)
     m = particle_mass(radius, p.rho_p)
     inertia = particle_inertia(radius, p.rho_p)
     g = torch.tensor(cfg.gravity, dtype=pos.dtype, device=dev)
@@ -491,7 +522,6 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
         pos = pos_n
         vel = vel_h + 0.5 * dt_dem * a
         angvel = angvel_h + 0.5 * dt_dem * aw
-    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if carry_c:
         return pos, vel, angvel, n_overflow, fc, tc
     return pos, vel, angvel, n_overflow

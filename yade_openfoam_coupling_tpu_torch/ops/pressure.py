@@ -1,14 +1,19 @@
-"""Matrix-free pressure solve (port of the main-path part of
-`yade_openfoam_coupling_tpu/ops/pressure.py`): the variable-coefficient
-Poisson operator, preconditioned CG with the JAX package's convergence,
-breakdown and divergence tests, and the spectral ("fftpcg")
-preconditioner — the exact inverse of the mean-coefficient operator as six
-dense transform products.
+"""Matrix-free pressure solvers (port of `yade_openfoam_coupling_tpu/ops/pressure.py`):
+the variable-coefficient Poisson operator, preconditioned CG with the JAX
+package's convergence, breakdown and divergence tests, and its three
+preconditioners: Jacobi (``"pcg"``), the geometric multigrid V-cycle with a
+Jacobi or Chebyshev smoother (``"mgpcg"``, OpenFOAM's GAMG), and the
+spectral one (``"fftpcg"``, the exact inverse of the mean-coefficient
+operator as six dense transform products, with the V-cycle where the BCs
+have no trigonometric basis).
 
-CG's data-dependent exit is a host-side loop: the residual test reads one
-scalar per iteration (one device sync). The other solvers (``"pcg"``, ``"mgpcg"``),
-``fixed_iters`` and the masked (obstacle) solve are not ported yet
-(ROADMAP A13).
+Under ``use_pallas`` every matvec on a grid whose sides are all at least 8
+runs the fused kernel B2 (`fused_stencil.laplacian_facegamma_fused`), as
+the JAX package runs its Pallas kernel there; smaller grids take the plain
+stencil. CG's data-dependent exit is a host-side loop: the residual test
+reads one scalar per iteration (one device sync). ``fixed_iters``,
+``MGConfig.bf16``, `solve_helmholtz` (implicit diffusion) and the masked
+(obstacle) solve are not ported yet (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .fused_stencil import laplacian_facegamma_fused
 from .grid import DIRICHLET, NEUMANN, PERIODIC, FieldBC, Grid, pad_scalar
 from .stencil import Flux, laplacian_facegamma_padded
 
@@ -35,9 +41,13 @@ def _ident(x):
 
 def poisson_apply(p: torch.Tensor, gamma_f: Flux, grid: Grid, pad,
                   use_pallas: bool = False) -> torch.Tensor:
-    """A(p) = div(gamma_f grad p). ``use_pallas`` selects the same operator
-    as a fused kernel in the JAX package; it changes nothing here."""
-    return laplacian_facegamma_padded(gamma_f, pad(p), grid)
+    """A(p) = div(gamma_f grad p). With ``use_pallas`` and every side of p
+    at least 8 (the JAX package's own rule, `pressure.py:69`) the matvec is
+    kernel B2; otherwise the plain stencil."""
+    pp = pad(p)
+    if use_pallas and min(p.shape) >= 8:
+        return laplacian_facegamma_fused(gamma_f, pp, grid)
+    return laplacian_facegamma_padded(gamma_f, pp, grid)
 
 
 def poisson_diag(gamma_f: Flux, grid: Grid, bc: Optional[FieldBC] = None) -> torch.Tensor:
@@ -126,8 +136,8 @@ def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class MGConfig:
-    """Multigrid V-cycle settings (config only in the port: ``mgpcg`` is
-    not ported yet, ROADMAP A13)."""
+    """Multigrid V-cycle settings; same fields and defaults as the JAX
+    package (``bf16`` is not ported yet, ROADMAP A13)."""
 
     levels: int = 0
     pre_smooth: int = 2
@@ -137,6 +147,121 @@ class MGConfig:
     smoother: str = "jacobi"
     cheby_frac: float = 4.0
     bf16: bool = False
+
+
+def _restrict(f: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction: average 2x2x2 fine cells."""
+    nx, ny, nz = f.shape
+    return f.reshape(nx // 2, 2, ny // 2, 2, nz // 2, 2).mean(dim=(1, 3, 5))
+
+
+def _prolong(c: torch.Tensor) -> torch.Tensor:
+    """Piecewise-constant prolongation (each coarse cell -> 2x2x2 fine)."""
+    return c.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+
+
+def _every_other(g: torch.Tensor, start: int, axis: int) -> torch.Tensor:
+    idx = [slice(None)] * 3
+    idx[axis] = slice(start, None, 2)
+    return g[tuple(idx)]
+
+
+def _coarsen_gamma_faces(gamma_f: Flux) -> Flux:
+    """Average the 4 fine faces lying on each coarse face; keep every other
+    face plane along the normal direction."""
+    out = []
+    for axis in range(3):
+        g = _every_other(gamma_f[axis], 0, axis)
+        for t in range(3):
+            if t != axis:
+                g = 0.5 * (_every_other(g, 0, t) + _every_other(g, 1, t))
+        out.append(g)
+    return tuple(out)
+
+
+def _coarsen_grid(grid: Grid) -> Grid:
+    return Grid(tuple(n // 2 for n in grid.shape), tuple(2.0 * h for h in grid.spacing),
+                grid.origin)
+
+
+def mg_levels_for(grid: Grid, min_size: int = 4) -> int:
+    """How many coarsening levels the grid admits (incl. the fine level)."""
+    lv = 1
+    shape = list(grid.shape)
+    while all(n % 2 == 0 and n // 2 >= min_size for n in shape):
+        shape = [n // 2 for n in shape]
+        lv += 1
+    return lv
+
+
+def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
+                           cfg: MGConfig = MGConfig(),
+                           use_pallas: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A V-cycle M^-1 r for the face-gamma Poisson operator (the role of
+    OpenFOAM's GAMG): damped-Jacobi or Chebyshev smoothing on every level,
+    `coarse_iters` smoothing sweeps on the coarsest."""
+    if cfg.bf16:
+        raise NotImplementedError(f"MGConfig.bf16: {_A13}")
+    levels = cfg.levels if cfg.levels > 0 else mg_levels_for(grid)
+    gammas, grids = [gamma_f], [grid]
+    for _ in range(levels - 1):
+        gammas.append(_coarsen_gamma_faces(gammas[-1]))
+        grids.append(_coarsen_grid(grids[-1]))
+    pad = default_pad(bc)
+    inv_diags = []
+    for g, gr in zip(gammas, grids):
+        d = poisson_diag(g, gr, bc)
+        inv_diags.append(1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d))
+
+    def apply_lv(lv, v):
+        return poisson_apply(v, gammas[lv], grids[lv], pad, use_pallas=use_pallas)
+
+    def smooth_jacobi(lv, x, b, iters):
+        for _ in range(iters):
+            r = b - apply_lv(lv, x)
+            x = x + cfg.omega * inv_diags[lv] * r
+        return x
+
+    def smooth_cheby(lv, x, b, iters):
+        """Chebyshev(iters) smoothing of D^-1 A on [L/frac, L], L = 2 (the
+        Gershgorin bound), by the 3-term d-recurrence: one matvec per
+        iteration, as a Jacobi sweep."""
+        if iters <= 0:
+            return x
+        L = 2.0
+        lo = L / cfg.cheby_frac
+        theta, delta = 0.5 * (L + lo), 0.5 * (L - lo)
+        sigma = theta / delta
+        r = b - apply_lv(lv, x)
+        z = inv_diags[lv] * r
+        d = z / theta
+        x = x + d
+        rho_old = 1.0 / sigma
+        for _ in range(iters - 1):
+            rho = 1.0 / (2.0 * sigma - rho_old)
+            r = r - apply_lv(lv, d)
+            z = inv_diags[lv] * r
+            d = (rho * rho_old) * d + (2.0 * rho / delta) * z
+            x = x + d
+            rho_old = rho
+        return x
+
+    if cfg.smoother == "chebyshev":
+        smooth = smooth_cheby
+    elif cfg.smoother == "jacobi":
+        smooth = smooth_jacobi
+    else:
+        raise ValueError(f"unknown MG smoother {cfg.smoother!r}")
+
+    def vcycle(lv, b):
+        x = smooth(lv, torch.zeros_like(b), b, cfg.pre_smooth)
+        if lv == levels - 1:
+            return smooth(lv, x, b, cfg.coarse_iters)
+        r = b - apply_lv(lv, x)
+        x = x + _prolong(vcycle(lv + 1, _restrict(r)))
+        return smooth(lv, x, b, cfg.post_smooth)
+
+    return lambda r: vcycle(0, r)
 
 
 def _spectral_axis_basis(n: int, lo_kind: str, hi_kind: str, h: float):
@@ -220,7 +345,7 @@ def make_spectral_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
 @dataclasses.dataclass(frozen=True)
 class PressureSolverConfig:
     """The fvSolution `p` sub-dictionary; same fields and defaults as the
-    JAX package. ``use_pallas`` changes nothing here."""
+    JAX package. ``use_pallas`` runs the matvecs as kernel B2."""
 
     solver: str = "mgpcg"      # 'pcg' | 'mgpcg' | 'fftpcg'
     tol: float = 1e-6
@@ -242,15 +367,15 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
     mean of p pinned (`pEqn.setReference`)."""
     if solid is not None:
         raise NotImplementedError(f"masked-cell obstacle solve: {_A13}")
-    if cfg.solver != "fftpcg" or cfg.fixed_iters:
-        raise NotImplementedError(
-            f"solver={cfg.solver!r}, fixed_iters={cfg.fixed_iters}: {_A13}")
+    if cfg.fixed_iters:
+        raise NotImplementedError(f"fixed_iters={cfg.fixed_iters}: {_A13}")
     pad = pad if pad is not None else default_pad(bc)
     if nullspace is None:
         nullspace = not any(f.kind == DIRICHLET for pair in bc.faces for f in pair)
 
     # fold the affine (nonzero-Dirichlet) ghost constant into the RHS
-    bc_const = poisson_apply(torch.zeros_like(rhs), gamma_f, grid, pad)
+    bc_const = poisson_apply(torch.zeros_like(rhs), gamma_f, grid, pad,
+                             use_pallas=cfg.use_pallas)
     rhs = rhs - bc_const
     ncells = reduce_sum(torch.tensor(float(rhs.numel()), dtype=rhs.dtype,
                                      device=rhs.device))
@@ -263,14 +388,23 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
         p0 = p0 - _mean(p0)
 
     def apply_A(p):
-        return poisson_apply(p, gamma_f, grid, pad) - bc_const
+        return poisson_apply(p, gamma_f, grid, pad, use_pallas=cfg.use_pallas) - bc_const
 
     mg_grid = Grid(tuple(rhs.shape), grid.spacing, grid.origin)
     pbc = precond_bc if precond_bc is not None else bc.homogeneous()
-    M = make_spectral_preconditioner(gamma_f, mg_grid, pbc)
-    if M is None:
-        raise NotImplementedError(
-            f"fftpcg without a trigonometric basis (MG fallback): {_A13}")
+    if cfg.solver == "fftpcg":
+        M = make_spectral_preconditioner(gamma_f, mg_grid, pbc)
+        if M is None:       # no trigonometric basis for these BCs: V-cycle
+            M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg,
+                                       use_pallas=cfg.use_pallas)
+    elif cfg.solver == "mgpcg":
+        M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg, use_pallas=cfg.use_pallas)
+    elif cfg.solver == "pcg":
+        d = poisson_diag(gamma_f, mg_grid, pbc)
+        inv_diag = 1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d)
+        M = lambda r: inv_diag * r  # noqa: E731
+    else:
+        raise ValueError(f"unknown pressure solver {cfg.solver!r}")
 
     res = pcg(apply_A, rhs, p0, precond=M, reduce_sum=reduce_sum,
               tol=cfg.tol, atol=cfg.abs_tol, rel_tol=cfg.rel_tol,
