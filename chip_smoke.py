@@ -19,10 +19,17 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
     kernel B3, one Verlet list per step, mgpcg); then the configuration the
     CLI's set-up builds, through the bench's checks, and one 10-step chunk
     of it with `use_pallas` (kernel B2 in every matvec on sides >= 8);
+  * the PISO slice: `icofoam <case>` on a 128^3 closed box (point-force
+    exchange, B3 over the 8 trilinear corners, PISO with mgpcg) the same
+    way, with its `use_pallas` chunk; and the settling sphere, whose
+    terminal velocity must be Stokes';
+  * B7, the per-plane dynamic-trip-count staging of the prototype
+    `scripts/proto_dynwin.py`, through its own script;
 then holds the 4-slab chunked planes exchange against the whole-grid one,
 checks the bench's health conditions and that each path went through its
 kernels, and checks the CUDA path against the CPU path of the same port
-on a small case for the window, planes and sparse exchanges.
+on a small case for the window, planes and sparse exchanges and for PISO
+with a box obstacle.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (times, the least time the card could take, and a PyTorch call's
@@ -49,6 +56,7 @@ STEPS_PER_RUN, TIMED_RUNS = 10, 2
 KERNEL_RTOL = 1e-5
 JAX_OPS = "yade_openfoam_coupling_tpu/ops/"
 PORT_CSRC = "yade_openfoam_coupling_tpu_torch/csrc/"
+W_CHUNK = 512                 # the prototype's staging chunk (proto_dynwin.py)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 CLI_ARGS = ["--random-particles", str(N_PARTICLES), "--radius", str(RADIUS), "--kn", "100",
@@ -120,10 +128,13 @@ def initial_state(cfg, n, device, vel_scale=0.0):
         make_turbulence_state(cfg.grid, device, k0=1e-6), cfg, dt=DT)
 
 
-def cuda_ms(fn, reps, warmup=2):
+def cuda_ms(fn, reps, warmup=2, device_only=False):
     """Median milliseconds of fn() over reps runs, each between CUDA events,
     after `warmup` untimed runs (the first timed calls of a run otherwise
-    read up to ~40% high)."""
+    read up to ~40% high). The span includes the host's time in fn before
+    its launches reach the idle card; with ``device_only`` the card is kept
+    busy (~1 ms of `torch.cuda._sleep`) while the host enqueues fn, so the
+    span is the card's own time."""
     import torch
     for _ in range(warmup):
         fn()
@@ -131,6 +142,8 @@ def cuda_ms(fn, reps, warmup=2):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -292,19 +305,18 @@ def planes_kernel_phase(cfg, device):
             for name, (err, ms, plain_ms, b) in out.items()}
 
 
-def rolls_kernel_phase(device, S=27, C=4):
-    """B3 against its plain version at the CLI slice's shapes: a seeded
+def rolls_kernel_phase(device, offsets, C):
+    """B3 against its plain version at a path's shapes: a seeded
     offset-major anchor buffer (S*C, ncells + 1) seen as (S, C, 128^3), as
-    the sparse deposit hands it over; the cube stencil. Times the kernel,
-    the plain roll loop and one circular Conv3d with one-hot weights
-    w[c, o*C + c, 1 - dx, 1 - dy, 1 - dz] = 1 (TF32 off), which computes
-    the same function and which the port does not use."""
+    the deposit hands it over (the sparse exchange's cube stencil with
+    C = 4, the point-force exchange's 8 corners with C = 3). Times the
+    kernel, the plain roll loop and one circular Conv3d with one-hot
+    weights w[c, o*C + c, 1 - dx, 1 - dy, 1 - dz] = 1 (TF32 off), which
+    computes the same function and which the port does not use."""
     import torch
-    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops import rolls
 
-    offsets = cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube"))
-    assert len(offsets) == S
+    S = len(offsets)
     shape = (NX,) * 3
     ncells = NX ** 3
     gen = torch.Generator(device=device).manual_seed(3)
@@ -327,10 +339,11 @@ def rolls_kernel_phase(device, S=27, C=4):
         library_ms = cuda_ms(lambda: conv(x), 5)
     del x
     ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20)
+    dev_ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20, device_only=True)
     plain_ms = cuda_ms(lambda: rolls.distribute_rolls_reference(bufT, offsets), 5)
     print(f"kernel rolls_deposit (S={S}, C={C}, {NX}^3): max_abs_err {err:.3e}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, Conv3d {library_ms:.3f} ms "
-          f"(its max abs difference {lib_err:.3e})", flush=True)
+          f"{ms:.3f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.3f} ms, Conv3d "
+          f"{library_ms:.3f} ms (its max abs difference {lib_err:.3e})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **bound(nbytes(bufT, kern), S * C * ncells), "library_ms": library_ms}
 
@@ -356,11 +369,106 @@ def laplacian_kernel_phase(device):
     kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
     err = check_close("laplacian", "out", kern[None], plain[None])
     ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50)
+    dev_ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50,
+                     device_only=True)
     plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
-    print(f"kernel laplacian ({NX}^3): max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms", flush=True)
+    print(f"kernel laplacian ({NX}^3): max_abs_err {err:.3e}; kernel {ms:.4f} ms "
+          f"({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
+
+
+def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
+    """B7 against its plain version: dynamic equal to static bit for bit,
+    and within KERNEL_RTOL of each plane's scale of the plain one-hot
+    version. Times the kernel (dynamic and static), the plain version and
+    one batched f32 one-hot torch.bmm (TF32 off; the one-hot and the
+    broadcast values built outside the timed call), which computes the
+    same function and which the port does not use."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
+
+    args = (dat, nch, ny, nz, W_CHUNK)
+    plain = dw.stage_planes_reference(*args, True)
+    dyn = dw.stage_planes(*args, True)
+    static = dw.stage_planes(*args, False)
+    if not torch.equal(dyn, static):
+        raise AssertionError(f"dynwin_staging {label}: dynamic and static differ")
+    nxl, _, W = dat.shape
+    err = check_close("dynwin_staging", label, dyn.reshape(nxl, -1), plain.reshape(nxl, -1))
+
+    live = torch.clamp(nch.long(), 0, W // W_CHUNK) * W_CHUNK          # rows per plane
+    rows = torch.arange(W, device=device)[None, :] < live[:, None]
+    onehot = ((torch.arange(ny, device=device)[None, :, None] == dat[:, 1].int()[:, None, :])
+              & rows[:, None, :]).float()
+    E = dat[:, 0].to(torch.bfloat16).float()[:, :, None].expand(nxl, W, nz).contiguous()
+    lib_err = float((torch.bmm(onehot, E) - plain).abs().max())
+    library_ms = cuda_ms(lambda: torch.bmm(onehot, E), 5)
+    del onehot, E
+    ms = cuda_ms(lambda: dw.stage_planes(*args, True), 50)
+    static_ms = cuda_ms(lambda: dw.stage_planes(*args, False), 50)
+    dev_ms, dev_static_ms = (cuda_ms(lambda: dw.stage_planes(*args, d), 50, device_only=True)
+                             for d in (True, False))
+    plain_ms = cuda_ms(lambda: dw.stage_planes_reference(*args, True), 10)
+    n_live = int(live.sum())
+    print(f"kernel dynwin_staging ({label}: {nxl} planes, W {W}, {ny}x{nz}, {n_live} live "
+          f"rows): dynamic == static bit for bit; max_abs_err {err:.3e}; kernel {ms:.4f} ms "
+          f"dynamic, {static_ms:.4f} ms static ({dev_ms:.4f} and {dev_static_ms:.4f} ms "
+          f"device only), plain {plain_ms:.4f} ms, bmm {library_ms:.4f} ms (its max abs "
+          f"difference {lib_err:.3e})", flush=True)
+    # the live rows' value and y, nch, the output; one add per live row
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(n_live * 2 * dat.element_size() + nbytes(nch, dyn), n_live),
+            "library_ms": library_ms}
+
+
+def timing_floor(device, card):
+    """What `cuda_ms` reads, host-inclusive and device only, for launches
+    with almost no work: a one-element torch add and B7 on one plane of
+    W_CHUNK rows with a 1x1 output. The floor of the two methods, against
+    which the small kernels' times are read."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
+
+    x = torch.zeros(1, device=device)
+    dat = torch.zeros((1, 2, W_CHUNK), device=device)
+    nch = torch.ones(1, dtype=torch.int32, device=device)
+    for label, fn in (("torch add, 1 element", lambda: x.add_(1.0)),
+                      ("dynwin_staging, 1 plane, 1x1", lambda: dw.stage_planes(
+                          dat, nch, 1, 1, W_CHUNK, True))):
+        print(f"timing floor, {label}: {cuda_ms(fn, 50):.4f} ms, "
+              f"{cuda_ms(fn, 50, device_only=True):.4f} ms device only [{card}]", flush=True)
+
+
+def dynwin_main_path_inputs(cfg, device):
+    """B7 at the window exchange's shape: the value and y channels of
+    `window_bins`' window for the bench lattice (128 planes, W =
+    window_size(100k, 128) = 2048), nch = ceil(min(counts, W) / 512)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+
+    pf, _, _ = seeded_inputs(cfg, device, 10)
+    W = cw.window_size(N_PARTICLES, cfg.grid.shape[0], cfg.coupling.planes_window)
+    bins = cw.window_bins(pf, cfg.grid, cfg.coupling.slot_capacity, W)
+    ych = bins.dat_win.shape[1] - 3
+    dat = torch.stack([bins.dat_win[:, 0], bins.dat_win[:, ych]], 1).contiguous()
+    nch = torch.div(torch.clamp(bins.counts, max=W) + W_CHUNK - 1, W_CHUNK,
+                    rounding_mode="floor").to(torch.int32)
+    return dat, nch
+
+
+def dynwin_script_phase(card):
+    """B7's own path: `python -m ...scripts.proto_dynwin` on the card (its
+    default device) through its `main`, counts from 0. -> launches."""
+    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
+    dw.stage_planes.launches = 0
+    rc = dw.main([])
+    if rc != 0 or dw.stage_planes.launches < 2:
+        raise AssertionError(f"proto_dynwin exited with {rc} after "
+                             f"{dw.stage_planes.launches} launches")
+    print(f"proto_dynwin on the card: rc 0, {dw.stage_planes.launches} launches [{card}]",
+          flush=True)
+    return dw.stage_planes.launches
 
 
 def write_cli_case(d: Path, n=NX, length=1e-3 * NX):
@@ -393,43 +501,72 @@ def write_cli_case(d: Path, n=NX, length=1e-3 * NX):
     return d
 
 
-def cli_phase(card, steps=20):
-    """`pimplefoam <case>` through the CLI's own `main` on the card (its
-    default device): 100k random particles, `steps` steps. The launch
-    counts are set to 0 just before and read just after; B3 must have run
-    at least twice per step (the two deposits of each sparse exchange).
+def write_ico_case(d: Path, n=NX, length=1e-3 * NX):
+    """The closed-box case directory of the PISO slice: one hex block and
+    no 0/ directory (no-slip walls, zero-gradient p), nu 1e-6, densities
+    2500/1000, deltaT 5e-5, GAMG pressure (mgpcg) to tolerance 0 / relTol 0
+    in at most 200 iterations, PISO 2 correctors with the momentum
+    predictor."""
+    for sub in ("system", "constant"):
+        (d / sub).mkdir(parents=True, exist_ok=True)
+    L = length
+    v = [(0, 0, 0), (L, 0, 0), (L, L, 0), (0, L, 0), (0, 0, L), (L, 0, L), (L, L, L), (0, L, L)]
+    (d / "system/blockMeshDict").write_text(
+        "convertToMeters 1; vertices ( " + " ".join(f"({a} {b} {c})" for a, b, c in v)
+        + f" ); blocks ( hex (0 1 2 3 4 5 6 7) ({n} {n} {n}) simpleGrading (1 1 1) );")
+    (d / "constant/transportProperties").write_text(
+        "nu nu [0 2 -1 0 0 0 0] 1e-06; partDensity 2500; fluidDensity 1000;")
+    (d / "system/controlDict").write_text("deltaT 5e-05; endTime 1000; writeInterval 1000;")
+    (d / "system/fvSolution").write_text(
+        "solvers { p { solver GAMG; tolerance 0; relTol 0; maxIter 200; } }"
+        " PISO { nCorrectors 2; momentumPredictor yes; }")
+    return d
+
+
+# per solver: the CLI command, its case directory and B3's launches per
+# step (two deposits per sparse exchange, one per point-force exchange)
+CLI_SOLVERS = {"pimple": ("pimplefoam", write_cli_case, 2), "piso": ("icofoam", write_ico_case, 1)}
+
+
+def cli_phase(card, solver, steps=20):
+    """`pimplefoam <case>` or `icofoam <case>` through the CLI's own `main`
+    on the card (its default device): 100k random particles, `steps`
+    steps. The launch counts are set to 0 just before and read just after;
+    B3 must have run at least as often per step as the exchange deposits.
     -> the launch counts."""
     from yade_openfoam_coupling_tpu_torch import cli
 
-    case = write_cli_case(Path(tempfile.mkdtemp(prefix="cli_case_")))
+    cmd, writer, b3_per_step = CLI_SOLVERS[solver]
+    case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")))
     try:
         reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main(["pimplefoam", str(case), *CLI_ARGS, "--max-steps", str(steps)])
+        rc = cli.main([cmd, str(case), *CLI_ARGS, "--max-steps", str(steps)])
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
         shutil.rmtree(case)
     if rc != 0:
-        raise AssertionError(f"pimplefoam exited with {rc}")
-    if launches["rolls_deposit"] < 2 * steps:
-        raise AssertionError(f"CLI run: B3 launched {launches['rolls_deposit']} times in "
+        raise AssertionError(f"{cmd} exited with {rc}")
+    if launches["rolls_deposit"] < b3_per_step * steps:
+        raise AssertionError(f"CLI {cmd}: B3 launched {launches['rolls_deposit']} times in "
                              f"{steps} steps")
-    print(f"CLI pimplefoam, {N_PARTICLES} random particles, {NX}^3: {steps} steps in "
+    print(f"CLI {cmd}, {N_PARTICLES} random particles, {NX}^3: {steps} steps in "
           f"{wall:.2f} s with set-up [{card}]; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return launches
 
 
-def cli_config():
-    """The CaseConfig the CLI's set-up function builds for the CLI slice
-    (its initial state, built on the card too, is dropped)."""
+def cli_config(solver):
+    """The CaseConfig the CLI's set-up function builds for the CLI slice of
+    ``solver`` (its initial state, built on the card too, is dropped)."""
     from yade_openfoam_coupling_tpu_torch import cli
 
-    case = write_cli_case(Path(tempfile.mkdtemp(prefix="cli_case_")))
+    cmd, writer, _ = CLI_SOLVERS[solver]
+    case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")))
     try:
-        args = cli.build_parser().parse_args(["pimplefoam", str(case), *CLI_ARGS])
-        cfg, _, _ = cli.setup(args, "pimple")
+        args = cli.build_parser().parse_args([cmd, str(case), *CLI_ARGS])
+        cfg, _, _ = cli.setup(args, solver)
     finally:
         shutil.rmtree(case)
     return cfg
@@ -438,16 +575,18 @@ def cli_config():
 def stage_phase(cfg, device, card, label):
     """Where one STEPS_PER_RUN-step chunk's time goes, after a warm-up
     chunk: synchronised host-clock time in the exchange, the DEM substeps,
-    the turbulence correction and the PIMPLE step, and inside the last in
-    the pressure solves. The synchronisations add a few ms per step, so
-    the stages are read as shares, not as the slice's rate."""
+    the fluid step (the turbulence correction and the PIMPLE step, or the
+    PISO step), and inside the fluid step the pressure solves. The
+    synchronisations add a few ms per step, so the stages are read as
+    shares, not as the slice's rate."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
     from yade_openfoam_coupling_tpu_torch.models import turbulence
     from yade_openfoam_coupling_tpu_torch.ops import dem, pressure
 
-    spots = [(cd, "exchange"), (dem, "dem_substeps"), (turbulence, "correct"),
-             (cd, "pimple_step"), (pressure, "solve_pressure")]
+    fluid = ([(cd, "piso_step")] if cfg.solver == "piso"
+             else [(turbulence, "correct"), (cd, "pimple_step")])
+    spots = [(cd, "exchange"), (dem, "dem_substeps"), *fluid, (pressure, "solve_pressure")]
     spent = dict.fromkeys((name for _, name in spots), 0.0)
 
     def timed(name, fn):
@@ -482,21 +621,25 @@ def stage_phase(cfg, device, card, label):
 
 
 def with_use_pallas(cfg):
-    pimple = cfg.pimple
-    return dataclasses.replace(cfg, pimple=dataclasses.replace(
-        pimple, pressure=dataclasses.replace(pimple.pressure, use_pallas=True)))
+    """cfg with B2 in every pressure matvec of its solver."""
+    fluid = cfg.piso if cfg.solver == "piso" else cfg.pimple
+    fluid = dataclasses.replace(fluid, pressure=dataclasses.replace(fluid.pressure,
+                                                                    use_pallas=True))
+    return dataclasses.replace(cfg, **{cfg.solver: fluid})
 
 
 def launch_counters():
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
     from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, rolls
+    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin
     return {"window_exchange": cw.window_exchange_padded,
             "planes_fused": cpp.fused_exchange_padded,
             "planes_interp": cpp.interp_planes_padded,
             "planes_deposit": cpp.deposit_stacks,
             "rolls_deposit": rolls.distribute_rolls,
-            "laplacian": fused_stencil.laplacian_facegamma_fused}
+            "laplacian": fused_stencil.laplacian_facegamma_fused,
+            "dynwin_staging": proto_dynwin.stage_planes}
 
 
 def reset_launches():
@@ -634,12 +777,42 @@ def small_check(device, cfg, label):
           f"relative difference {worst:.3e}", flush=True)
 
 
+def settling_phase(device, card, steps=60):
+    """`settling_sphere()` (16^3, point-force PISO) on the card for `steps`
+    steps: the sphere's velocity within 5% of Stokes' terminal velocity
+    (rho_p - rho_f) V g / (3 pi d mu), as tests/test_coupled.py holds the
+    JAX package, and found every step."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.cases import settling_sphere
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+
+    cfg, state, _ = settling_sphere(device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, diags = cd.make_scan_fn(cfg, steps)(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r, tp = float(state.particles.radius[0]), cfg.transport
+    v_t = (tp.rho_p - tp.rho_f) * (4.0 / 3.0 * np.pi * r ** 3) * 9.81 / (
+        3 * np.pi * 2 * r * tp.nu * tp.rho_f)
+    vz = -float(state.particles.vel[0, 2])
+    if not abs(vz - v_t) <= 0.05 * v_t or not bool((diags.n_found == 1).all()):
+        raise AssertionError(f"settling sphere: v {vz:.6g} m/s vs Stokes {v_t:.6g} m/s, "
+                             f"found {diags.n_found.tolist()}")
+    print(f"settling sphere 16^3, {steps} steps in {wall:.2f} s [{card}]: v {vz:.6g} m/s, "
+          f"Stokes {v_t:.6g} m/s ({100 * (vz / v_t - 1):+.2f}%), B3 launches "
+          f"{read_launches()['rolls_deposit']}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from yade_openfoam_coupling_tpu_torch import kernels
+    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
+    from yade_openfoam_coupling_tpu_torch.ops.obstacle import box_solid
+    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -662,8 +835,20 @@ def main() -> int:
     print(f"window_exchange (torque, added mass): kernel {e['ms']:.4f} ms, plain "
           f"{e['plain_ms']:.4f} ms [{smi}]", flush=True)
     kern.update(planes_kernel_phase(pcfg, device))
-    kern["rolls_deposit"] = rolls_kernel_phase(device)
+    kern["rolls_deposit"] = rolls_kernel_phase(
+        device, cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4)
+    corners = rolls_kernel_phase(device, cp.TRILINEAR_CORNERS, 3)
     kern["laplacian"] = laplacian_kernel_phase(device)
+    proto = dynwin_kernel_phase(device, "prototype", *(
+        torch.as_tensor(a, device=device) for a in dw.prototype_inputs()), dw.NY, dw.NZ)
+    kern["dynwin_staging"] = dynwin_kernel_phase(device, "window shape",
+                                                 *dynwin_main_path_inputs(cfg, device), NX, NX)
+    timing_floor(device, smi)
+    for label, e in (("rolls_deposit (S=8, C=3, the point-force deposit)", corners),
+                     ("dynwin_staging (the prototype's shape)", proto)):
+        print(f"{label}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library {e['library_ms']:.4f} ms "
+              f"[{smi}]", flush=True)
     for name, e in kern.items():
         print(f"{name}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library "
@@ -681,8 +866,8 @@ def main() -> int:
                           timed_runs=0)
     launches["planes_interp"] = runs["planes_interp"]
     launches["planes_deposit"] = runs["planes_deposit"]
-    cli_phase(smi)
-    ccfg = cli_config()
+    cli_phase(smi, "pimple")
+    ccfg = cli_config("pimple")
     runs, iters = slice_phase(ccfg, device, smi, "CLI slice", {"rolls_deposit": 2})
     launches["rolls_deposit"] = runs["rolls_deposit"]
     runs, iters_pal = slice_phase(with_use_pallas(ccfg), device, smi,
@@ -693,23 +878,41 @@ def main() -> int:
           f"{iters_pal.tolist()}", flush=True)
     stage_phase(ccfg, device, smi, "CLI slice")
     stage_phase(with_use_pallas(ccfg), device, smi, "CLI slice, use_pallas")
+
+    cli_phase(smi, "piso")
+    picfg = cli_config("piso")
+    runs, iters = slice_phase(picfg, device, smi, "PISO slice", {"rolls_deposit": 1})
+    print(f"PISO slice: B3 (S=8, C=3) launches {runs['rolls_deposit']}", flush=True)
+    runs, iters_pal = slice_phase(with_use_pallas(picfg), device, smi, "PISO slice, use_pallas",
+                                  {"rolls_deposit": 1, "laplacian": 1}, timed_runs=0)
+    print(f"PISO slice p_iters per step: {iters.tolist()}; with use_pallas: "
+          f"{iters_pal.tolist()}", flush=True)
+    stage_phase(picfg, device, smi, "PISO slice")
+    settling_phase(device, smi)
+    launches["dynwin_staging"] = dynwin_script_phase(smi)
+
     chunked_phase(pcfg, device)
+    grid16 = bench_config(16).grid
     small_check(device, bench_config(16), "window")
     small_check(device, planes_config(bench_config(16)), "planes")
-    small_check(device, dataclasses.replace(with_use_pallas(ccfg), grid=bench_config(16).grid),
+    small_check(device, dataclasses.replace(with_use_pallas(ccfg), grid=grid16),
                 "sparse, use_pallas")
+    small_check(device, dataclasses.replace(with_use_pallas(picfg), grid=grid16,
+                                            solid=box_solid(grid16.shape, (5, 6, 4), (9, 10, 8))),
+                "PISO, box obstacle, use_pallas")
 
-    sources = {"window_exchange": ("window_exchange.cu", "coupling_window.py:162"),
-               "planes_fused": ("planes_exchange.cu", "coupling_planes.py:508"),
-               "planes_interp": ("planes_exchange.cu", "coupling_planes.py:278"),
-               "planes_deposit": ("planes_exchange.cu", "coupling_planes.py:404"),
-               "rolls_deposit": ("rolls_deposit.cu", "pallas_rolls.py:39"),
-               "laplacian": ("laplacian.cu", "pallas_stencil.py:37")}
+    sources = {"window_exchange": ("window_exchange.cu", JAX_OPS + "coupling_window.py:162"),
+               "planes_fused": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
+               "planes_interp": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:278"),
+               "planes_deposit": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:404"),
+               "rolls_deposit": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
+               "laplacian": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
+               "dynwin_staging": ("dynwin_staging.cu", "scripts/proto_dynwin.py:34")}
     entries = []
     for name, e in kern.items():
         src, replaces = sources[name]
         entries.append({"name": name, "route": "cuda", "source": PORT_CSRC + src,
-                        "replaces": JAX_OPS + replaces, "launches": launches[name], **e})
+                        "replaces": replaces, "launches": launches[name], **e})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -84,5 +84,16 @@ def test_fluidized_bed_1m_shape_steps_match_jax():
 
 @pytest.mark.parametrize("name", ["settling_sphere", "sedimentation_cloud"])
 def test_piso_builders_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        getattr(tcases, name)(device=CPU)
+    """The PISO builders match the JAX package's: equal configs and dt,
+    the same particles, and the point-force exchange's initial state (alpha
+    1, no particle velocity field). Their steps: tests/test_torch_icofoam.py."""
+    kw = dict(n=8) if name == "settling_sphere" else dict(n_particles=40, n=8)
+    ref_cfg, ref_state, ref_dt = getattr(jcases, name)(**kw)
+    cfg, state, dt = getattr(tcases, name)(**kw, device=CPU)
+    assert case_config_from(ref_cfg) == cfg and dt == ref_dt
+    assert cfg.solver == "piso" and not cfg.coupling.gaussian and cfg.dem.buoyancy
+    ref, out = jax.tree.map(np.asarray, ref_state), state_to_numpy(state)
+    np.testing.assert_array_equal(out.particles.pos, ref.particles.pos)
+    np.testing.assert_array_equal(out.particles.active, ref.particles.active)
+    np.testing.assert_array_equal(out.fluid.alpha, ref.fluid.alpha)
+    np.testing.assert_array_equal(out.fluid.u_particle, ref.fluid.u_particle)

@@ -30,6 +30,7 @@ from yade_openfoam_coupling_tpu_torch.ops.stencil import (
     face_interp_all_padded,
     laplacian_facegamma_padded,
 )
+from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
 GRID = Grid.box((12, 10, 14), (0.012, 0.010, 0.014))
 
@@ -211,14 +212,16 @@ ASYMMETRIC = np.array([[1, 0, 0], [0, -1, 1], [-1, 1, -1], [0, 0, 1], [1, -1, 0]
     (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4),
     (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")), 8),
     (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")), 1),
+    (cp.TRILINEAR_CORNERS, 3),
     (ASYMMETRIC, 3),
 ])
 def test_rolls_kernel_matches_plain(cuda, offsets, C):
     """B3 (csrc/rolls_deposit.cu) against the plain roll loop, bit for bit
     (the same sum order), on a strided view of an offset-major buffer with
     a scrap column, as the deposit hands it over (also with one channel,
-    whose size-1 dim carries no stride); the asymmetric offset set pins the
-    roll direction."""
+    whose size-1 dim carries no stride), the point-force exchange's 8
+    corners with 3 channels; the asymmetric offset set pins the roll
+    direction."""
     S, shape = len(offsets), (12, 10, 14)
     ncells = int(np.prod(shape))
     gen = torch.Generator(device=cuda).manual_seed(7)
@@ -259,3 +262,37 @@ def test_laplacian_kernel_matches_plain(cuda, bc):
     _assert_channels_close(kern[None], plain[None])
     with pytest.raises(ValueError, match="gamma_y"):
         fs.laplacian_facegamma_fused((gamma_f[0], gamma_f[1][:, :-1], gamma_f[2]), pp, grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["prototype", "ragged"])
+def test_dynwin_kernel_matches_plain(cuda, shape):
+    """B7 (csrc/dynwin_staging.cu) against its plain version to 1e-5 of each
+    plane's scale, dynamic equal to static bit for bit, on the prototype's
+    inputs and on planes of 300 y rows (more than a block's threads) with
+    W = 3 tiles of 1024 rows."""
+    if shape == "prototype":
+        dat, nch = dw.prototype_inputs()
+        ny, nz, w_chunk = dw.NY, dw.NZ, dw.W_CHUNK
+    else:
+        rng = np.random.RandomState(9)
+        ny, nz, w_chunk, W = 300, 7, 256, 3072
+        counts = rng.randint(0, W + 1, 5)
+        dat = np.zeros((5, 2, W), np.float32)
+        dat[:, 0] = rng.randn(5, W)
+        dat[:, 1] = rng.randint(0, ny, (5, W))
+        for i, c in enumerate(counts):
+            dat[i, 1, c:] = -1.0
+        nch = np.ceil(counts / w_chunk).astype(np.int32)
+    dat, nch = torch.as_tensor(dat, device=cuda), torch.as_tensor(nch, device=cuda)
+    plain = dw.stage_planes_reference(dat, nch, ny, nz, w_chunk, True)
+    before = dw.stage_planes.launches
+    dyn = dw.stage_planes(dat, nch, ny, nz, w_chunk, True)
+    static = dw.stage_planes(dat, nch, ny, nz, w_chunk, False)
+    torch.cuda.synchronize()
+    assert dw.stage_planes.launches == before + 2
+    assert torch.equal(dyn, static)
+    live = plain.reshape(plain.shape[0], -1).abs().amax(-1) > 0
+    _assert_channels_close(dyn.reshape(dyn.shape[0], -1)[live],
+                           plain.reshape(plain.shape[0], -1)[live])
+    assert not dyn.reshape(dyn.shape[0], -1)[~live].any()

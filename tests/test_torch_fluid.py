@@ -87,8 +87,9 @@ def test_poisson_diag_matches(bname):
 
 
 def test_unported_pressure_solvers_raise():
-    """mgpcg and pcg run now (tests/test_torch_pressure.py); fixed_iters,
-    the bf16 V-cycle and the masked (obstacle) solve still raise."""
+    """mgpcg and pcg run (tests/test_torch_pressure.py), and so does the
+    masked obstacle solve (tests/test_torch_piso.py); fixed_iters and the
+    bf16 V-cycle raise."""
     z = torch.zeros(GRID.shape)
     gam = tuple(torch.ones(s) for s in ((9, 6, 10), (8, 7, 10), (8, 6, 11)))
     args = (gam, z, z, config_from(GRID), config_from(BCS.p))
@@ -96,8 +97,6 @@ def test_unported_pressure_solvers_raise():
                 tpr.PressureSolverConfig(solver="fftpcg", fixed_iters=5)):
         with pytest.raises(NotImplementedError, match="A13"):
             tpr.solve_pressure(*args, cfg)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tpr.solve_pressure(*args, tpr.PressureSolverConfig(solver="pcg"), solid=object())
     assert int(tpr.solve_pressure(*args, tpr.PressureSolverConfig(solver="mgpcg")).iters) == 0
 
 

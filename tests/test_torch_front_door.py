@@ -259,7 +259,7 @@ def test_checkpoint_round_trip(tmp_path):
 def test_cli_runs_on_the_cpu(tmp_path, capsys):
     """`pimplefoam` on the CPU, with the sparse exchange and, with --fast,
     the planes exchange: rc 0 and `End`, time directories and checkpoints
-    written; `icofoam` raises the PISO NotImplementedError."""
+    written; `icofoam` (PISO, point-force exchange) on the same case: rc 0."""
     case = write_case(tmp_path / "case", n=8, length=0.008, write_interval=1e-4)
     base = ["pimplefoam", str(case), "--device", "cpu", "--random-particles", "8",
             "--radius", "1e-4", "--chunk", "2", "--max-steps", "4", "--dem-substeps", "2"]
@@ -271,5 +271,6 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     assert tckpt.latest_step(tmp_path / "ck") == 4
     assert cli.main(base + ["--fast"]) == 0
     assert "End (4 steps" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        cli.main(["icofoam", str(case), "--device", "cpu", "--random-particles", "4"])
+    assert cli.main(["icofoam", str(case), "--device", "cpu", "--random-particles", "4",
+                     "--radius", "1e-4", "--chunk", "2", "--max-steps", "2"]) == 0
+    assert "End (2 steps" in capsys.readouterr().out

@@ -87,8 +87,8 @@ def test_config_fields_and_defaults_match(name):
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor the JAX
-    package (checked in a fresh interpreter), the front door's modules and
-    the copied foamdict/foammesh included."""
+    package (checked in a fresh interpreter), the front door's modules, the
+    copied foamdict/foammesh, the obstacles and the B7 script included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import yade_openfoam_coupling_tpu_torch as p\n"
@@ -107,7 +107,8 @@ def test_port_imports_no_jax():
     mods = set(proc.stdout.split())
     for name in ("utils.foamdict", "utils.foammesh", "utils.config", "utils.checkpoint",
                  "utils.logging", "models.runner", "cli", "cases.builders", "ops.rolls",
-                 "ops.fused_stencil"):
+                 "ops.fused_stencil", "ops.obstacle", "models.piso",
+                 "scripts.proto_dynwin"):
         assert f"yade_openfoam_coupling_tpu_torch.{name}" in mods, name
 
 
@@ -146,7 +147,7 @@ def test_case_config_from_and_unported_options_raise():
     assert isinstance(port, tcd.CaseConfig)
     assert isinstance(port.dem.params, tdem.ContactParams)
     assert _plain(port) == _plain(cfg)
-    for bad in (dataclasses.replace(port, solver="piso"),
+    for bad in (dataclasses.replace(port, dem=tdem.DEMConfig(dynamic_substeps=True)),
                 dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="slots")),
                 dataclasses.replace(port, dem=tdem.DEMConfig(shear_history=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP A1[123]"):

@@ -1,8 +1,8 @@
-"""Builders for the PIMPLE validation cases (port of the PIMPLE half of
-`yade_openfoam_coupling_tpu/cases/builders.py`). Each returns (cfg, state,
-dt) with the state on ``device`` (default ``cuda``). The PISO cases,
-`settling_sphere` and `sedimentation_cloud`, raise until `piso_step` is
-ported (ROADMAP A13)."""
+"""Builders for the validation cases (port of
+`yade_openfoam_coupling_tpu/cases/builders.py`): the PISO point-force
+cases `settling_sphere` and `sedimentation_cloud`, and the PIMPLE cases.
+Each returns (cfg, state, dt) with the state on ``device`` (default
+``cuda``)."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from ..models.fields import (
     make_turbulence_state,
 )
 from ..models.pimple import PIMPLEConfig
-from ..models.piso import FluidBCs
+from ..models.piso import FluidBCs, PISOConfig
 from ..models.turbulence import TurbulenceConfig
 from ..ops import coupling as cp
 from ..ops import dem
@@ -27,7 +27,6 @@ from ..ops import pressure as pr
 from ..ops.grid import DIRICHLET, NEUMANN, PERIODIC, FaceBC, FieldBC, Grid
 
 WATER = cd.TransportProperties(nu=1e-6, rho_f=1000.0, rho_p=2500.0)
-_PISO = "the PISO cases: not ported yet (ROADMAP A13)"
 
 
 def _init(cfg, pos, radius, dt, device, k0=0.0, capacity=None):
@@ -39,12 +38,39 @@ def _init(cfg, pos, radius, dt, device, k0=0.0, capacity=None):
     return cfg, state, dt
 
 
-def settling_sphere(n: int = 16, device="cuda"):
-    raise NotImplementedError(_PISO)
+def settling_sphere(n: int = 16, device="cuda") -> Tuple[cd.CaseConfig, SimState, float]:
+    """Config #1: one sphere settling in a closed box, point-force PISO; its
+    terminal velocity has the analytic Stokes value."""
+    cfg = cd.CaseConfig(
+        grid=Grid.cube(n, 8e-3), bcs=FluidBCs.box_noslip(), transport=WATER, solver="piso",
+        coupling=cp.CouplingConfig(gaussian=False),
+        dem=dem.DEMConfig(params=dem.ContactParams(rho_p=WATER.rho_p),
+                          gravity=(0.0, 0.0, -9.81), buoyancy=True, rho_f=WATER.rho_f),
+        piso=PISOConfig(n_correctors=1),
+        n_dem_substeps=10,
+        r_max=50e-6,
+    )
+    return _init(cfg, [[4e-3, 4e-3, 6e-3]], 50e-6, 2e-4, device, capacity=4)
 
 
-def sedimentation_cloud(n_particles: int = 500, n: int = 32, seed: int = 0, device="cuda"):
-    raise NotImplementedError(_PISO)
+def sedimentation_cloud(n_particles: int = 500, n: int = 32, seed: int = 0,
+                        device="cuda") -> Tuple[cd.CaseConfig, SimState, float]:
+    """Config #2: a sedimenting sphere cloud, point-force PISO with
+    contacts."""
+    radius = 150e-6
+    cfg = cd.CaseConfig(
+        grid=Grid.cube(n, 0.02), bcs=FluidBCs.box_noslip(), transport=WATER, solver="piso",
+        coupling=cp.CouplingConfig(gaussian=False),
+        dem=dem.DEMConfig(
+            params=dem.ContactParams(kn=50.0, restitution=0.5, rho_p=WATER.rho_p),
+            gravity=(0.0, 0.0, -9.81), buoyancy=True, rho_f=WATER.rho_f,
+            neighbor="allpairs"),
+        piso=PISOConfig(n_correctors=1),
+        n_dem_substeps=10,
+        r_max=radius,
+    )
+    pos = np.random.RandomState(seed).uniform(0.004, 0.016, (n_particles, 3))
+    return _init(cfg, pos, radius, 1e-4, device)
 
 
 def fluidized_bed(n_particles: int = 10_000, n: int = 48, seed: int = 0,

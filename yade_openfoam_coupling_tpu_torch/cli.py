@@ -9,9 +9,10 @@ Same options and the same DEM choice as the JAX package's CLI, plus
 CUDA device and there is none). Particle initial state comes from
 `<case_dir>/particles.xyz` (one x y z per line; radius via --radius) or
 --random-particles N. `pimplefoam` runs the sparse Gaussian exchange, or
-with ``--fast`` the planes exchange; `icofoam` (PISO, point-force
-coupling) is not ported yet (ROADMAP A13). The JAX package's `bench`
-subcommand runs its own `bench.py` and has no counterpart here.
+with ``--fast`` the planes exchange; `icofoam` runs PISO with the
+point-force exchange (`cases/example_icoFoamYade` is its example case).
+The JAX package's `bench` subcommand runs its own `bench.py` and has no
+counterpart here.
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ ENTRY_POINTS = {
                         "yofc_planes_interp": 7, "yofc_planes_deposit": 6},
     "rolls_deposit": {"yofc_rolls_deposit": 4},
     "laplacian": {"yofc_laplacian": 8},
+    "dynwin_staging": {"yofc_dynwin_staging": 5},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

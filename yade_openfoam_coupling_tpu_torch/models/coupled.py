@@ -2,18 +2,18 @@
 `yade_openfoam_coupling_tpu/models/coupled.py`).
 
 One coupled step: Courant number and adaptive dt, the coupling inputs,
-the sparse, window or planes exchange (the sparse one in particle chunks
-under ``particle_chunks > 1``, the planes one in x-slabs under
-``planes_chunks > 1``), the DEM substeps (on the frozen Verlet list, or on
-one list built per step, or on all pairs), the turbulence correction and
-the PIMPLE step, then the diagnostics. `make_scan_fn` runs the steps as a
-Python loop, in chunks of [one Verlet-list rebuild -> K frozen-list steps]
-under ``list_reuse``, and stacks the per-step diagnostics along a leading
-axis.
+the exchange (Gaussian: sparse, window or planes, the sparse one in
+particle chunks under ``particle_chunks > 1``, the planes one in x-slabs
+under ``planes_chunks > 1``; or the point-force one), the DEM substeps (on
+the frozen Verlet list, or on one list built per step, or on all pairs),
+then the fluid: PISO, or the turbulence correction and PIMPLE, both with
+the masked-cell obstacles of ``CaseConfig.solid``; then the diagnostics.
+`make_scan_fn` runs the steps as a Python loop, in chunks of [one
+Verlet-list rebuild -> K frozen-list steps] under ``list_reuse``, and
+stacks the per-step diagnostics along a leading axis.
 
-Not ported yet: the PISO solver and the point-force path (ROADMAP A13),
-the slots exchange (A12), the per-step conditional list rebuild, shear
-history and dynamic substeps (A11), obstacles (A13).
+Not ported yet: the slots exchange (ROADMAP A12), the per-step conditional
+list rebuild, shear history and dynamic substeps (A11).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 
 from ..ops import coupling as cp
 from ..ops import dem as demod
+from ..ops import obstacle as ob
 from ..ops import stencil as st
 from ..ops.coupling_planes import (
     gaussian_coupling_planes,
@@ -42,7 +43,7 @@ from ..utils.diagnostics import (
 from . import turbulence as turb_mod
 from .fields import FluidState, ParticleState, SimState, StepDiagnostics, TurbulenceState
 from .pimple import PIMPLEConfig, pimple_step
-from .piso import FluidBCs, PISOConfig
+from .piso import FluidBCs, PISOConfig, piso_step
 
 _NEU = FieldBC.uniform("neumann")
 
@@ -80,13 +81,17 @@ class CaseConfig:
     def periodic_axes(self):
         return self.bcs.periodic_axes()
 
+    def obstacle_masks(self, device):
+        """The ObstacleMasks of `solid` on ``device``, or None."""
+        if self.solid is None:
+            return None
+        return ob.build_masks(self.solid, self.bcs.periodic_axes(), device)
+
 
 def _check_supported(cfg: CaseConfig) -> None:
     """Raise for the configurations the port does not run yet."""
-    if cfg.solver != "pimple":
-        raise NotImplementedError(f"solver={cfg.solver!r}: not ported yet (ROADMAP A13)")
-    if cfg.solid is not None:
-        raise NotImplementedError("masked-cell obstacles: not ported yet (ROADMAP A13)")
+    if cfg.solver not in ("piso", "pimple"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
     _check_exchange(cfg.coupling)
     d = cfg.dem
     if d.shear_history or d.dynamic_substeps or d.enforce_critical_dt:
@@ -96,10 +101,7 @@ def _check_supported(cfg: CaseConfig) -> None:
 
 
 def _check_exchange(c: cp.CouplingConfig) -> None:
-    if not c.gaussian:
-        raise NotImplementedError(
-            "point-force coupling (gaussian=False): not ported yet (ROADMAP A13)")
-    if c.exchange not in ("sparse", "window", "planes"):
+    if c.gaussian and c.exchange not in ("sparse", "window", "planes"):
         raise NotImplementedError(
             f"coupling exchange={c.exchange!r}: not ported yet (ROADMAP A12)")
 
@@ -135,6 +137,9 @@ def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
     _check_exchange(cfg)
     curl_u, grad_p, div_tau, ddt_u = _coupling_inputs(fs, grid, bcs, tp.nu, dt, ctx, cfg)
     pf = cp.ParticleFields(ps.pos, ps.vel, ps.angvel, ps.radius, ps.active)
+    if not cfg.gaussian:
+        return cp.point_force_coupling(pf, fs.u, curl_u, grid, bcs.periodic_axes(), tp.nu,
+                                       tp.rho_f)
     if cfg.exchange == "planes":
         fn = (gaussian_coupling_planes_chunked if cfg.planes_chunks > 1
               else gaussian_coupling_planes)
@@ -167,6 +172,11 @@ def initialize_state(fluid: FluidState, particles: ParticleState,
     _check_supported(cfg)
     dev = fluid.p.device
     dt_arr = torch.tensor(dt, dtype=torch.float32, device=dev)
+    if cfg.solid is not None:
+        # no velocity in solid cells, no flux through blocked faces: the
+        # invariants every step keeps
+        m = cfg.obstacle_masks(dev)
+        fluid = fluid._replace(u=ob.mask_u(fluid.u, m), phi=ob.mask_flux(fluid.phi, m))
     if cfg.dem.list_reuse and particles.nbr is None:
         if cfg.dem.neighbor != "cells":
             raise ValueError("list_reuse requires neighbor='cells'")
@@ -182,7 +192,7 @@ def initialize_state(fluid: FluidState, particles: ParticleState,
                     cfg.coupling, dt_arr)
     fluid = fluid._replace(alpha=cres.alpha, alpha_old=cres.alpha,
                            u_particle=cres.u_particle)
-    if cfg.pimple.p_extrapolate != 0.0 and fluid.p_prev is None:
+    if cfg.solver == "pimple" and cfg.pimple.p_extrapolate != 0.0 and fluid.p_prev is None:
         fluid = fluid._replace(p_prev=fluid.p)
     return SimState(
         fluid=fluid, particles=particles, turb=turb,
@@ -213,7 +223,9 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
     else:
         co_mean, co_max = courant(fs.phi, grid, state.dt, ctx)
     if cfg.time.adjust_time_step:
-        dt_diff = diffusive_dt_bound(grid, tp.nu, ctx.max(torch.amax(tb.nut)))
+        # PISO's momentum diffusion is laminar: no nut in its bound
+        nut_max = ctx.max(torch.amax(tb.nut)) if cfg.solver == "pimple" else 0.0
+        dt_diff = diffusive_dt_bound(grid, tp.nu, nut_max)
         dt = new_dt(co_max, state.dt, cfg.time, dt_diff=dt_diff)
     else:
         dt = state.dt
@@ -258,9 +270,15 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
 
     # 5. fluid step
     u_prev = fs.u
-    tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, cfg.turbulence, ctx=ctx)
-    g = torch.tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
-    fs2, info = pimple_step(fs, grid, bcs, tp.nu, tb2.nut, g, dt, cfg.pimple, ctx=ctx)
+    masks = cfg.obstacle_masks(dev)
+    if cfg.solver == "piso":
+        fs2, info = piso_step(fs, grid, bcs, tp.nu, dt, cfg.piso, ctx=ctx, masks=masks)
+        tb2 = tb
+    else:
+        tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, cfg.turbulence, ctx=ctx)
+        g = torch.tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
+        fs2, info = pimple_step(fs, grid, bcs, tp.nu, tb2.nut, g, dt, cfg.pimple, ctx=ctx,
+                                masks=masks)
     fs2 = fs2._replace(u_old=u_prev)
     if fs.p_prev is not None:
         fs2 = fs2._replace(p_prev=fs.p)

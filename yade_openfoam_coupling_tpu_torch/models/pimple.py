@@ -5,8 +5,9 @@ Phase momentum with the continuity and drag Sp terms in the implicit
 diagonal, convection and the alpha-weighted viscous stress (plus the
 dev2-transpose term) explicit; body forces enter through the face flux;
 the pressure equation laplacian(alphacf*rAUcf, p) == ddt(alphac) +
-div(alphacf*phiHbyA) is solved matrix-free. `implicit_diffusion` and
-obstacle masks are not ported yet (ROADMAP A13).
+div(alphacf*phiHbyA) is solved matrix-free. Masked-cell obstacles
+(``masks``) as in `piso.piso_step`; `implicit_diffusion` is not ported yet
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from ..ops import obstacle as ob
 from ..ops import pressure as pr
 from ..ops import stencil as st
 from ..ops.grid import FieldBC, Grid
@@ -56,9 +58,9 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
     if cfg.implicit_diffusion:
         raise NotImplementedError(
             "PIMPLEConfig.implicit_diffusion: not ported yet (ROADMAP A13)")
-    if masks is not None:
+    if masks is not None and not isinstance(ctx, LocalCtx):
         raise NotImplementedError(
-            "masked-cell obstacles: not ported yet (ROADMAP A13)")
+            "masked-cell obstacles on a sharded ctx: not ported yet (ROADMAP A15)")
     alpha = fs.alpha
     alpha_old = fs.alpha_old
     alpha_f = st.face_interp_all_padded(ctx.pad_s(alpha, _NEU))   # alphacf
@@ -100,12 +102,17 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
         # phicForces: body-force face flux
         force_flux = st.flux_padded(ctx.pad_v(rAU[None] * fs.u_source, _NEU), grid)
         phic_forces = tuple(force_flux[a] + rAU_f[a] * g[a] for a in range(3))
+        if masks is not None:
+            # body forces push no flux through blocked faces
+            phic_forces = ob.mask_flux(phic_forces, masks)
         HbyA = rAU[None] * H
 
         if cfg.momentum_predictor:
             snp = st.face_grad_padded(ctx.pad_s(p, bcs.p), grid)
             u = HbyA + rAU[None] * st.reconstruct(
                 tuple(phic_forces[a] / rAU_f[a] - snp[a] for a in range(3)))
+            if masks is not None:
+                u = ob.mask_u(u, masks)
 
         p_outer = p
         if _outer == 0 and cfg.p_extrapolate != 0.0 and fs.p_prev is not None:
@@ -114,16 +121,22 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
             phiHbyA = st.flux_padded(ctx.pad_v(HbyA, bcs.u), grid)
             phiHbyA = tuple(phiHbyA[a] + phic_forces[a] for a in range(3))
             phiHbyA = st.constrain_flux(phiHbyA, bcs.u, ctx)
+            if masks is not None:
+                phiHbyA = ob.mask_flux(phiHbyA, masks)
             if _needs_adjust_phi(bcs):
                 phiHbyA = st.adjust_phi(phiHbyA, bcs.u, grid, ctx, ctx.sum)
 
             gamma_p = tuple(alpha_f[a] * rAU_f[a] for a in range(3))
             rhs = ddt_alpha + st.div_flux(
                 tuple(alpha_f[a] * phiHbyA[a] for a in range(3)), grid)
+            if masks is not None:
+                # solid cells carry no continuity equation
+                gamma_p = ob.mask_flux(gamma_p, masks)
+                rhs = rhs * masks.fluid
             res = pr.solve_pressure(
                 gamma_p, rhs, p, grid, bcs.p, pcfg,
                 pad=lambda f: ctx.pad_s(f, bcs.p), reduce_sum=ctx.sum,
-                precond_bc=precond_bc)
+                precond_bc=precond_bc, solid=masks)
             p = res.x
             # step-level info: first solve's initial residual, last solve's
             # final residual, total iterations
@@ -133,10 +146,16 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
                 res.residual)
 
             snp = st.face_grad_padded(ctx.pad_s(p, bcs.p), grid)
+            if masks is not None:
+                # the pressure flux rides the masked coefficient: snGrad(p)
+                # across a solid face is nonzero by construction
+                snp = ob.mask_flux(snp, masks)
             pflux_over_alpha = tuple(rAU_f[a] * snp[a] for a in range(3))
             phi = tuple(phiHbyA[a] - pflux_over_alpha[a] for a in range(3))
             u = HbyA + rAU[None] * st.reconstruct(tuple(
                 (phic_forces[a] - pflux_over_alpha[a]) / rAU_f[a] for a in range(3)))
+            if masks is not None:
+                u = ob.mask_u(u, masks)
         if cfg.relax_p < 1.0 and not final:
             p = p_outer + cfg.relax_p * (p - p_outer)
         phi_alpha = tuple(alpha_f[a] * phi[a] for a in range(3))

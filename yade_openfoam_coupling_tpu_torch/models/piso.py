@@ -1,17 +1,26 @@
-"""What the PIMPLE solver imports from the PISO module (port of part of
-`yade_openfoam_coupling_tpu/models/piso.py`): the fluid BCs, the PISO
-configuration and the pressure-solve record. `piso_step` itself is not
-ported yet (ROADMAP A13)."""
+"""PISO pressure-velocity solver, the icoFoamYade fluid step (port of
+`yade_openfoam_coupling_tpu/models/piso.py`), with the fluid BCs, the
+PISO configuration and the pressure-solve record that PIMPLE shares.
+
+Momentum is implicit Euler with the coupling drag in the diagonal and
+convection and diffusion explicit, so A = 1/dt - uSourceDrag and
+H = U_n/dt - div(phi,U) + nu lap(U) + uSource; each corrector recomputes H
+from the latest U (Picard) and solves div(rAU_f grad p) = div(phiHbyA)
+matrix-free. Single-device: a sharded ctx raises (ROADMAP A15).
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import obstacle as ob
 from ..ops import pressure as pr
-from ..ops.grid import DIRICHLET, NEUMANN, PERIODIC, FaceBC, FieldBC
+from ..ops import stencil as st
+from ..ops.grid import DIRICHLET, NEUMANN, PERIODIC, FaceBC, FieldBC, Grid
+from .fields import FluidState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +52,9 @@ class FluidBCs:
 
 @dataclasses.dataclass(frozen=True)
 class PISOConfig:
-    """The fvSolution `PISO` controls (config only in the port)."""
+    """The fvSolution `PISO` controls; same fields and defaults as the JAX
+    package (``ddt_corr``: the fvc::ddtCorr flux history, off by default
+    there too)."""
 
     n_correctors: int = 2
     momentum_predictor: bool = True
@@ -56,6 +67,98 @@ class PressureSolveInfo(NamedTuple):
     iters: torch.Tensor
     initial_residual: torch.Tensor
     final_residual: torch.Tensor
+
+
+_NEU = FieldBC.uniform("neumann")
+
+
+def momentum_AH(fs: FluidState, grid: Grid, bcs: FluidBCs, nu_eff, dt, cfg: PISOConfig,
+                u_latest: Optional[torch.Tensor] = None, g: Optional[torch.Tensor] = None,
+                ctx=None):
+    """A (diagonal, a scalar field) and H (explicit operator value) of
+    ddt(U) + div(phi,U) - lap(nu,U) == uSource, the drag implicit in A.
+    A scalar ``nu_eff`` takes the constant-coefficient Laplacian, a field
+    the face-interpolated one."""
+    from ..parallel.ctx import LOCAL
+    ctx = ctx if ctx is not None else LOCAL
+    up = ctx.pad_v(fs.u if u_latest is None else u_latest, bcs.u)
+    conv = st.div_phi_vector_padded(fs.phi, up, grid, cfg.convection_scheme)
+    if not isinstance(nu_eff, torch.Tensor) or nu_eff.dim() == 0:
+        diff = nu_eff * st.laplacian_vector_padded(up, grid)
+    else:
+        diff = st.laplacian_gamma_vector_padded(
+            st.face_interp_all_padded(ctx.pad_s(nu_eff, _NEU)), up, grid)
+    A = 1.0 / dt - fs.u_source_drag
+    H = fs.u / dt - conv + diff + fs.u_source
+    if g is not None:
+        H = H + g[:, None, None, None]
+    return A, H
+
+
+def piso_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu, dt,
+              cfg: PISOConfig = PISOConfig(), ctx=None,
+              masks: Optional[ob.ObstacleMasks] = None) -> Tuple[FluidState, PressureSolveInfo]:
+    """One PISO step (the fluid half of the icoFoamYade loop); the coupling
+    fields in `fs` are inputs. `masks` pins velocity in solid cells, blocks
+    fluxes at solid faces and hands the solid rows to
+    `solve_pressure(solid=...)`."""
+    from ..parallel.ctx import LOCAL, LocalCtx
+    ctx = ctx if ctx is not None else LOCAL
+    if not isinstance(ctx, LocalCtx):
+        raise NotImplementedError("piso_step on a sharded ctx: not ported yet (ROADMAP A15)")
+    A, H = momentum_AH(fs, grid, bcs, nu, dt, cfg, ctx=ctx)
+    rAU = 1.0 / A
+    HbyA = rAU[None] * H
+
+    u = fs.u
+    if cfg.momentum_predictor:
+        u = HbyA - rAU[None] * st.grad_scalar_padded(ctx.pad_s(fs.p, bcs.p), grid)
+        if masks is not None:
+            u = ob.mask_u(u, masks)
+
+    if cfg.ddt_corr:
+        # the old-time face/cell flux mismatch with OpenFOAM's Euler limiter,
+        # fixed across correctors
+        flux_uo = st.flux_padded(ctx.pad_v(fs.u, bcs.u), grid)
+        dphi = tuple(fs.phi[a] - flux_uo[a] for a in range(3))
+        ddtc = tuple((1.0 - torch.clamp(torch.abs(dphi[a]) / (torch.abs(fs.phi[a]) + 1e-30),
+                                        max=1.0)) * dphi[a] / dt for a in range(3))
+    p, phi, info = fs.p, fs.phi, None
+    for _ in range(cfg.n_correctors):
+        A, H = momentum_AH(fs, grid, bcs, nu, dt, cfg, u_latest=u, ctx=ctx)
+        rAU = 1.0 / A
+        HbyA = rAU[None] * H
+
+        phiHbyA = st.flux_padded(ctx.pad_v(HbyA, bcs.u), grid)
+        gamma_f = st.face_interp_all_padded(ctx.pad_s(rAU, _NEU))
+        if cfg.ddt_corr:
+            phiHbyA = tuple(phiHbyA[a] + gamma_f[a] * ddtc[a] for a in range(3))
+        phiHbyA = st.constrain_flux(phiHbyA, bcs.u, ctx)
+        if masks is not None:
+            phiHbyA = ob.mask_flux(phiHbyA, masks)
+        if _needs_adjust_phi(bcs):
+            phiHbyA = st.adjust_phi(phiHbyA, bcs.u, grid, ctx, ctx.sum)
+        if masks is not None:
+            gamma_f = ob.mask_flux(gamma_f, masks)
+        res = pr.solve_pressure(gamma_f, st.div_flux(phiHbyA, grid), p, grid, bcs.p,
+                                cfg.pressure, pad=lambda f: ctx.pad_s(f, bcs.p),
+                                reduce_sum=ctx.sum, solid=masks)
+        p = res.x
+        # step-level info: first solve's initial residual, last solve's
+        # final residual, total iterations
+        info = PressureSolveInfo(
+            res.iters if info is None else info.iters + res.iters,
+            res.initial_residual if info is None else info.initial_residual,
+            res.residual)
+
+        pp = ctx.pad_s(p, bcs.p)
+        snp = st.face_grad_padded(pp, grid)
+        phi = tuple(phiHbyA[a] - gamma_f[a] * snp[a] for a in range(3))
+        u = HbyA - rAU[None] * st.grad_scalar_padded(pp, grid)
+        if masks is not None:
+            u = ob.mask_u(u, masks)
+
+    return fs._replace(u=u, p=p, phi=phi), info
 
 
 def _needs_adjust_phi(bcs: FluidBCs) -> bool:

@@ -9,9 +9,10 @@ gathers the fluid inputs over it with one row gather, and deposits with one
 N-row scatter of all S*C channels onto each particle's anchor cell
 (`index_add_`, as the JAX package leaves its `segment_sum` to XLA), which
 kernel B3 (`rolls.distribute_rolls`) then spreads to the stencil cells.
-The window and planes exchanges live in `coupling_window.py` and
-`coupling_planes.py`. Not ported yet: the slots exchange (ROADMAP A12) and
-the point-force path (`point_force_coupling`, with PISO, A13).
+The point-force (icoFoamYade) exchange, `point_force_coupling`, runs the
+same deposit over the 8 trilinear corners {0,1}^3 of each particle. The
+window and planes exchanges live in `coupling_window.py` and
+`coupling_planes.py`. Not ported yet: the slots exchange (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -478,3 +479,83 @@ def gaussian_coupling_chunked(pf: ParticleFields, fluid_u, grad_p, div_tau, ddt_
     return CouplingResult(force=torch.cat(forces), torque=torch.cat(torques), alpha=alpha,
                           u_particle=u_particle, u_source=src + usd[None] * u_particle,
                           u_source_drag=usd, found=torch.cat(founds))
+
+
+# ---------------------------------------------------------------------------
+# Point-force (icoFoamYade) mode
+# ---------------------------------------------------------------------------
+
+# the trilinear support's corner offsets {0,1}^3, in the order of its weights
+TRILINEAR_CORNERS = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                             -1).reshape(-1, 3)
+
+
+def trilinear_cells_raw_weights(pos: torch.Tensor, active: torch.Tensor, grid: Grid):
+    """Unwrapped corner cell indices (3-tuple of (N,8)), trilinear weights
+    (N,8) and the in-domain mask (N,): in node space, where integer points
+    are cell centres, the anchor is floor((x - x0)/h - 1/2)."""
+    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=pos.device)
+    h = torch.tensor(grid.spacing, dtype=pos.dtype, device=pos.device)
+    s = (pos - origin) / h - 0.5
+    base = torch.floor(s).to(torch.int32)
+    frac = s - base.to(pos.dtype)
+    cells = []
+    w = 1.0
+    for a in range(3):
+        corn_a = torch.as_tensor(TRILINEAR_CORNERS[:, a], dtype=torch.int32, device=pos.device)
+        cells.append(base[:, a:a + 1] + corn_a[None, :])
+        fa = frac[:, a:a + 1]
+        w = w * torch.where(corn_a[None, :] == 1, fa, 1.0 - fa)
+    _, inside = locate(pos, grid)
+    return tuple(cells), w, active & inside
+
+
+def trilinear_weights(pos: torch.Tensor, grid: Grid, periodic, active) -> GaussianSupport:
+    """The trilinear support: corner flat ids, normalised weights, and the
+    anchor floor((x - x0)/h - 1/2) wrapped on every axis."""
+    cells, w, valid_particle = trilinear_cells_raw_weights(pos, active, grid)
+    flat, ok = _flat_cell_ids(cells, grid, periodic, valid_particle[:, None])
+    anchor = torch.stack([c[:, 0] for c in cells], 1)         # corner (0, 0, 0)
+    return GaussianSupport(flat, normalize_weights(w, ok), ok,
+                           _wrap_flat(anchor, valid_particle, grid))
+
+
+def point_force_physics(pf: ParticleFields, fluid_u, curl_u, found: torch.Tensor,
+                        ops: SupportOps, cell_volume: float, nu: float,
+                        rho_f: float) -> CouplingResult:
+    """Two-way Stokes point force (`stokesDragForce`): F = 3 pi d mu
+    (u_f - v), its source deposited with weight -F/(V_cell rho_f), and the
+    torque of the 1/2-curl rotation rate (`stokesDragTorque`), which the
+    reference's point-force branch always computes."""
+    g = ops.gather_stack([fluid_u, curl_u])                     # one row gather
+    uf, curl_p = g[:, 0:3], g[:, 3:6]
+    zero = torch.zeros((), dtype=pf.vel.dtype, device=pf.vel.device)
+    dia = 2.0 * pf.radius
+    coeff = 3.0 * math.pi * dia * nu * rho_f
+    force = torch.where(found[:, None], coeff[:, None] * (uf - pf.vel), zero)
+    u_source = ops.deposit_outer(-force * (1.0 / (cell_volume * rho_f)))
+
+    torque = math.pi * (dia ** 3)[:, None] * (0.5 * curl_p - pf.angvel) * nu * rho_f
+    torque = torch.where(found[:, None], torque, zero)
+
+    shape = u_source.shape[1:]
+    return CouplingResult(
+        force=force, torque=torque,
+        alpha=torch.ones(shape, dtype=fluid_u.dtype, device=fluid_u.device),
+        u_particle=torch.zeros((3,) + shape, dtype=fluid_u.dtype, device=fluid_u.device),
+        u_source=u_source,
+        u_source_drag=torch.zeros(shape, dtype=fluid_u.dtype, device=fluid_u.device),
+        found=found)
+
+
+def point_force_coupling(pf: ParticleFields, fluid_u, curl_u, grid: Grid, periodic,
+                         nu: float, rho_f: float) -> CouplingResult:
+    """The point-force exchange: the deposit is kernel B3 over the 8
+    corners (C = 3) on grids whose sides are all at least 8. Torque is
+    always on (`CouplingConfig.use_torque` does not apply), as in the
+    reference's point-force branch."""
+    sup = trilinear_weights(pf.pos, grid, periodic, pf.active)
+    found = torch.sum(sup.weights, dim=1) > 0.0
+    return point_force_physics(pf, fluid_u, curl_u, found,
+                               local_support_ops(sup, grid, TRILINEAR_CORNERS),
+                               grid.cell_volume, nu, rho_f)

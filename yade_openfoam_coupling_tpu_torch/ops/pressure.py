@@ -11,9 +11,10 @@ Under ``use_pallas`` every matvec on a grid whose sides are all at least 8
 runs the fused kernel B2 (`fused_stencil.laplacian_facegamma_fused`), as
 the JAX package runs its Pallas kernel there; smaller grids take the plain
 stencil. CG's data-dependent exit is a host-side loop: the residual test
-reads one scalar per iteration (one device sync). ``fixed_iters``,
-``MGConfig.bf16``, `solve_helmholtz` (implicit diffusion) and the masked
-(obstacle) solve are not ported yet (ROADMAP A13).
+reads one scalar per iteration (one device sync). `solve_pressure` takes
+the masked-cell obstacles (``solid=``). ``fixed_iters``, ``MGConfig.bf16``
+and `solve_helmholtz` (implicit diffusion) are not ported yet (ROADMAP
+A13).
 """
 
 from __future__ import annotations
@@ -364,31 +365,46 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
                    precond_bc: Optional[FieldBC] = None, solid=None) -> CGResult:
     """Solve div(gamma_f grad p) = rhs. Without a Dirichlet face the
     operator has the constant nullspace: the mean of rhs is removed and the
-    mean of p pinned (`pEqn.setReference`)."""
-    if solid is not None:
-        raise NotImplementedError(f"masked-cell obstacle solve: {_A13}")
+    mean of p pinned (`pEqn.setReference`).
+
+    ``solid`` (an `obstacle.ObstacleMasks`) is the masked-cell obstacle
+    solve: gamma_f comes face-masked, so solid rows of the Laplacian are
+    zero; they become a scaled identity -s p (s the interior diagonal
+    magnitude), the RHS and p0 are zeroed there, the preconditioner acts
+    on the fluid subspace, and the nullspace mean runs over fluid cells."""
     if cfg.fixed_iters:
         raise NotImplementedError(f"fixed_iters={cfg.fixed_iters}: {_A13}")
     pad = pad if pad is not None else default_pad(bc)
     if nullspace is None:
         nullspace = not any(f.kind == DIRICHLET for pair in bc.faces for f in pair)
 
+    fluid_m = None
+    if solid is not None:
+        fluid_m = solid.fluid
+        s_scale = sum(2.0 * torch.mean(gamma_f[a]) / grid.spacing[a] ** 2 for a in range(3))
+        rhs = rhs * fluid_m
+        p0 = p0 * fluid_m
+
     # fold the affine (nonzero-Dirichlet) ghost constant into the RHS
     bc_const = poisson_apply(torch.zeros_like(rhs), gamma_f, grid, pad,
                              use_pallas=cfg.use_pallas)
     rhs = rhs - bc_const
-    ncells = reduce_sum(torch.tensor(float(rhs.numel()), dtype=rhs.dtype,
-                                     device=rhs.device))
+    n_fluid = rhs.numel() - (solid.n_solid if solid is not None else 0)
+    ncells = reduce_sum(torch.tensor(float(n_fluid), dtype=rhs.dtype, device=rhs.device))
 
     def _mean(f):
-        return reduce_sum(torch.sum(f)) / ncells
+        """The mean over fluid cells, spread over fluid cells."""
+        if fluid_m is None:
+            return reduce_sum(torch.sum(f)) / ncells
+        return reduce_sum(torch.sum(f * fluid_m)) / ncells * fluid_m
 
     if nullspace:
         rhs = rhs - _mean(rhs)
         p0 = p0 - _mean(p0)
 
     def apply_A(p):
-        return poisson_apply(p, gamma_f, grid, pad, use_pallas=cfg.use_pallas) - bc_const
+        out = poisson_apply(p, gamma_f, grid, pad, use_pallas=cfg.use_pallas) - bc_const
+        return out if solid is None else out - s_scale * (solid.solid * p)
 
     mg_grid = Grid(tuple(rhs.shape), grid.spacing, grid.origin)
     pbc = precond_bc if precond_bc is not None else bc.homogeneous()
@@ -405,6 +421,11 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
         M = lambda r: inv_diag * r  # noqa: E731
     else:
         raise ValueError(f"unknown pressure solver {cfg.solver!r}")
+    if solid is not None:
+        # the unmasked preconditioner on the fluid subspace, the identity
+        # rows inverted exactly
+        M_fluid = M
+        M = lambda r: fluid_m * M_fluid(fluid_m * r) - (solid.solid * r) / s_scale  # noqa: E731
 
     res = pcg(apply_A, rhs, p0, precond=M, reduce_sum=reduce_sum,
               tol=cfg.tol, atol=cfg.abs_tol, rel_tol=cfg.rel_tol,
@@ -412,4 +433,6 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
     x = res.x
     if nullspace:
         x = x - _mean(x)
+    if fluid_m is not None:
+        x = x * fluid_m
     return CGResult(x, res.iters, res.residual, res.initial_residual)

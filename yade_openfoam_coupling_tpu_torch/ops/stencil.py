@@ -137,6 +137,21 @@ def div_phi_vector_padded(phi: Flux, up: torch.Tensor, grid: Grid,
 # Laplacian
 # ---------------------------------------------------------------------------
 
+def laplacian_padded(fp: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Constant-coefficient 7-point Laplacian of a padded scalar."""
+    out = 0.0
+    for axis in range(3):
+        f = _strip_other_axes(fp, axis)
+        n = f.shape[axis]
+        hi, mid, lo = _slice(f, 2, n, axis), _slice(f, 1, n - 1, axis), _slice(f, 0, n - 2, axis)
+        out = out + (hi - 2.0 * mid + lo) / (grid.spacing[axis] ** 2)
+    return out
+
+
+def laplacian_vector_padded(up: torch.Tensor, grid: Grid) -> torch.Tensor:
+    return torch.stack([laplacian_padded(up[c], grid) for c in range(3)])
+
+
 def laplacian_facegamma_padded(gamma_f: Flux, fp: torch.Tensor, grid: Grid) -> torch.Tensor:
     """Variable-coefficient ``fvm::laplacian(gamma, p)`` applied matrix-free:
     div(gamma_f * snGrad(p)) — the pressure-equation operator."""
