@@ -42,7 +42,6 @@ or when any check fails.
 import dataclasses
 import json
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -50,6 +49,12 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from yade_openfoam_coupling_tpu_torch.scripts.exchange_timing import (
+    cuda_ms,
+    lattice_positions,
+    peak_mb,
+)
 
 NX, N_PARTICLES, RADIUS, DT = 128, 100_000, 4e-4, 5e-5
 STEPS_PER_RUN, TIMED_RUNS = 10, 2
@@ -107,15 +112,6 @@ def planes_config(cfg, **coupling_kw):
     return dataclasses.replace(cfg, coupling=dataclasses.replace(coupling, **coupling_kw))
 
 
-def lattice_positions(n, length, seed=0):
-    """bench.py's jittered non-overlapping lattice."""
-    rng = np.random.RandomState(seed)
-    k = int(np.ceil(n ** (1.0 / 3.0)))
-    g = np.stack(np.meshgrid(*[np.linspace(0.1 * length, 0.9 * length, k)] * 3,
-                             indexing="ij"), -1).reshape(-1, 3)[:n]
-    return g + rng.uniform(-0.2 * length / k, 0.2 * length / k, g.shape)
-
-
 def initial_state(cfg, n, device, vel_scale=0.0):
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
     from yade_openfoam_coupling_tpu_torch.models.fields import (
@@ -128,28 +124,9 @@ def initial_state(cfg, n, device, vel_scale=0.0):
         make_turbulence_state(cfg.grid, device, k0=1e-6), cfg, dt=DT)
 
 
-def cuda_ms(fn, reps, warmup=2, device_only=False):
-    """Median milliseconds of fn() over reps runs, each between CUDA events,
-    after `warmup` untimed runs (the first timed calls of a run otherwise
-    read up to ~40% high). The span includes the host's time in fn before
-    its launches reach the idle card; with ``device_only`` the card is kept
-    busy (~1 ms of `torch.cuda._sleep`) while the host enqueues fn, so the
-    span is the card's own time."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def kernel_times(fn, reps=20):
+    """(host-inclusive, device-only) milliseconds of fn, as `cuda_ms` reads them."""
+    return cuda_ms(fn, reps), cuda_ms(fn, reps, device_only=True)
 
 
 def nbytes(*tensors):
@@ -243,13 +220,17 @@ def window_kernel_phase(cfg, device, extras=False):
     print(f"kernel {name}: max_abs_err {max_err:.3e} "
           f"(within {KERNEL_RTOL:g} of each channel's scale)", flush=True)
     ms = cuda_ms(lambda: cw.window_exchange_padded(*args, **kw), 20)
+    dev_ms = cuda_ms(lambda: cw.window_exchange_padded(*args, **kw), 20, device_only=True)
     plain_ms = cuda_ms(lambda: cw.window_exchange_padded_reference(*args, **kw), 5)
+    peak, above = peak_mb(lambda: cw.window_exchange_padded(*args, **kw))
+    print(f"kernel {name}: {ms:.4f} ms, {dev_ms:.4f} ms device only; peak device memory of "
+          f"one call {peak:.1f} MB, {above:.1f} MB above its inputs", flush=True)
     # inputs: Fp, the live window rows, counts; outputs: the stacks, pres
     live = int(bins.counts.clamp(max=W).sum())
     n_bytes = (nbytes(Fp, bins.counts, *kern[::2])
                + live * bins.dat_win.shape[1] * bins.dat_win.element_size())
     n_occ = int(bins.keep.sum())
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": max_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(n_bytes, exchange_flops(n_occ, 19, Fp.shape[0])), "library_ms": None}
 
 
@@ -268,20 +249,25 @@ def planes_kernel_phase(cfg, device):
     d_bytes, n_occ = slot_table_bytes(D)
     flops = exchange_flops(n_occ, 19, Fp.shape[0])
     args = (Fp, D, grid, periodic, ccfg, 0, nu, rho_f)
+    # the bound on occupied slots that the planes exchange passes
+    fused = lambda: cpp.fused_exchange_padded(*args, max_occupied=N_PARTICLES)  # noqa: E731
     plain = cpp.fused_exchange_padded_reference(*args)
-    kern = cpp.fused_exchange_padded(*args)
+    kern = fused()
     err = max(check_close("planes_fused", "stks", kern[0], plain[0]),
               check_close("planes_fused", "pres", kern[2], plain[2]))
-    out["planes_fused"] = (err, cuda_ms(lambda: cpp.fused_exchange_padded(*args), 20),
+    out["planes_fused"] = (err, *kernel_times(fused),
                            cuda_ms(lambda: cpp.fused_exchange_padded_reference(*args), 5),
                            bound(nbytes(Fp, kern[0], kern[2]) + d_bytes, flops))
+    peak, above = peak_mb(fused)
+    print(f"kernel planes_fused: peak device memory of one call {peak:.1f} MB, {above:.1f} MB "
+          "above its inputs", flush=True)
 
     iargs = (Fp, D, grid, periodic, ccfg, 0)
     G_p, n_p = cpp.interp_planes_padded_reference(*iargs)
     G_k, n_k = cpp.interp_planes_padded(*iargs)
     err = max(check_close("planes_interp", "G", G_k, G_p),
               check_close("planes_interp", "norm", n_k, n_p))
-    out["planes_interp"] = (err, cuda_ms(lambda: cpp.interp_planes_padded(*iargs), 20),
+    out["planes_interp"] = (err, *kernel_times(lambda: cpp.interp_planes_padded(*iargs)),
                             cuda_ms(lambda: cpp.interp_planes_padded_reference(*iargs), 5),
                             bound(nbytes(Fp, G_k, n_k) + d_bytes, flops))
 
@@ -294,15 +280,16 @@ def planes_kernel_phase(cfg, device):
     err = check_close("planes_deposit", "stks", kern[0], plain[0])
     # the occupied slots' V, the radius plane and their positions in D
     v_bytes = Vn.shape[0] * n_occ * Vn.element_size()
-    out["planes_deposit"] = (err, cuda_ms(lambda: cpp.deposit_stacks(*dargs), 20),
+    out["planes_deposit"] = (err, *kernel_times(lambda: cpp.deposit_stacks(*dargs)),
                              cuda_ms(lambda: cpp.deposit_stacks_reference(*dargs), 5),
                              bound(nbytes(kern[0], D[6]) + v_bytes + 3 * n_occ * 4, flops))
-    for name, (err, ms, plain_ms, _) in out.items():
+    for name, (err, ms, dev_ms, plain_ms, _) in out.items():
         print(f"kernel {name}: max_abs_err {err:.3e} (within {KERNEL_RTOL:g} of each "
-              f"channel's scale); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return {name: {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                   "library_ms": None}
-            for name, (err, ms, plain_ms, b) in out.items()}
+              f"channel's scale); kernel {ms:.4f} ms ({dev_ms:.4f} ms device only), plain "
+              f"{plain_ms:.3f} ms", flush=True)
+    return {name: {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   **b, "library_ms": None}
+            for name, (err, ms, dev_ms, plain_ms, b) in out.items()}
 
 
 def rolls_kernel_phase(device, offsets, C):
@@ -344,7 +331,7 @@ def rolls_kernel_phase(device, offsets, C):
     print(f"kernel rolls_deposit (S={S}, C={C}, {NX}^3): max_abs_err {err:.3e}; kernel "
           f"{ms:.3f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.3f} ms, Conv3d "
           f"{library_ms:.3f} ms (its max abs difference {lib_err:.3e})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(nbytes(bufT, kern), S * C * ncells), "library_ms": library_ms}
 
 
@@ -374,7 +361,7 @@ def laplacian_kernel_phase(device):
     plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
     print(f"kernel laplacian ({NX}^3): max_abs_err {err:.3e}; kernel {ms:.4f} ms "
           f"({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
 
 
@@ -417,7 +404,7 @@ def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
           f"device only), plain {plain_ms:.4f} ms, bmm {library_ms:.4f} ms (its max abs "
           f"difference {lib_err:.3e})", flush=True)
     # the live rows' value and y, nch, the output; one add per live row
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(n_live * 2 * dat.element_size() + nbytes(nch, dyn), n_live),
             "library_ms": library_ms}
 
@@ -832,8 +819,9 @@ def main() -> int:
     pcfg = planes_config(cfg)
     kern = {"window_exchange": window_kernel_phase(cfg, device)}
     e = window_kernel_phase(cfg, device, extras=True)
-    print(f"window_exchange (torque, added mass): kernel {e['ms']:.4f} ms, plain "
-          f"{e['plain_ms']:.4f} ms [{smi}]", flush=True)
+    print(f"window_exchange (torque, added mass): kernel {e['ms']:.4f} ms "
+          f"({e['device_ms']:.4f} ms device only), plain {e['plain_ms']:.4f} ms [{smi}]",
+          flush=True)
     kern.update(planes_kernel_phase(pcfg, device))
     kern["rolls_deposit"] = rolls_kernel_phase(
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4)
@@ -844,14 +832,10 @@ def main() -> int:
     kern["dynwin_staging"] = dynwin_kernel_phase(device, "window shape",
                                                  *dynwin_main_path_inputs(cfg, device), NX, NX)
     timing_floor(device, smi)
-    for label, e in (("rolls_deposit (S=8, C=3, the point-force deposit)", corners),
-                     ("dynwin_staging (the prototype's shape)", proto)):
-        print(f"{label}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library {e['library_ms']:.4f} ms "
-              f"[{smi}]", flush=True)
-    for name, e in kern.items():
-        print(f"{name}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library "
+    for name, e in [("rolls_deposit (S=8, C=3, the point-force deposit)", corners),
+                    ("dynwin_staging (the prototype's shape)", proto), *kern.items()]:
+        print(f"{name}: kernel {e['ms']:.4f} ms ({e['device_ms']:.4f} ms device only), plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
               f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} "
               f"ms [{smi}]", flush=True)
 
@@ -861,6 +845,8 @@ def main() -> int:
     launches["window_exchange"] = runs["window_exchange"]
     runs, _ = slice_phase(pcfg, device, smi, "planes slice", ["planes_fused"])
     launches["planes_fused"] = runs["planes_fused"]
+    stage_phase(cfg, device, smi, "window slice")
+    stage_phase(pcfg, device, smi, "planes slice")
     runs, _ = slice_phase(planes_config(cfg, fused_planes=False), device, smi,
                           "two-kernel planes slice", ["planes_interp", "planes_deposit"],
                           timed_runs=0)

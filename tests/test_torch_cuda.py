@@ -127,6 +127,14 @@ def test_window_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="Fp"):
         cw.window_exchange_padded(Fp, bins.dat_win, grid, (True, True, False), torque,
                                   0, 1e-6, 1000.0)
+    # one occupancy byte per cell: at most 8 ranks
+    wide = dataclasses.replace(cfg, slot_capacity=9)
+    with pytest.raises(ValueError, match="slot_capacity"):
+        cw.window_exchange_padded(Fp, bins.dat_win, grid, (True, True, False), wide,
+                                  0, 1e-6, 1000.0)
+    D = cpp.bin_particles_planes(pf, grid, 9).D
+    with pytest.raises(ValueError, match="slot_capacity"):
+        cpp.fused_exchange_padded(Fp, D, grid, (True, True, False), wide, 0, 1e-6, 1000.0)
 
 
 def _planes_case(periodic, cfg, device, seed, slab=None):
@@ -202,6 +210,197 @@ def test_planes_interp_and_deposit_kernels_match_plain(cuda, periodic, extras, s
     assert cpp.deposit_stacks.launches == before + 1
     assert kern[1] == plain[1]
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+
+
+EMPTY_PLANE, FULL_PLANE, EDGE_W = 5, 9, 32
+
+
+def _edge_particles(device, seed):
+    """Particles on GRID that reach every branch of the exchange kernels:
+    a random bulk that leaves plane EMPTY_PLANE empty, 45 more in plane
+    FULL_PLANE (more than an EDGE_W-row window holds), exactly cap = 4 in
+    one cell and 6 (2 over cap) in another, and particles in the first and
+    last cells of y and z, against the faces (periodic seams or walls)."""
+    rng = np.random.RandomState(seed)
+    h = np.asarray(GRID.spacing)
+    L = np.asarray(GRID.lengths)
+    bulk = rng.uniform(0.08 * L, 0.92 * L, (200, 3))
+    ix = np.floor(bulk[:, 0] / h[0]).astype(int)
+    bulk[ix == EMPTY_PLANE, 0] += h[0]
+
+    def in_cell(cell, n):
+        return (np.asarray(cell) + rng.uniform(0.05, 0.95, (n, 3))) * h
+
+    full = np.column_stack([(FULL_PLANE + rng.uniform(0.05, 0.95, 45)) * h[0],
+                            rng.uniform(0.02, 0.98, 45) * L[1],
+                            rng.uniform(0.02, 0.98, 45) * L[2]])
+    ny, nz = GRID.shape[1], GRID.shape[2]
+    faces = np.concatenate([in_cell((2, 0, 6), 2), in_cell((3, ny - 1, 6), 2),
+                            in_cell((7, 4, 0), 2), in_cell((8, 5, nz - 1), 2),
+                            in_cell((10, 0, nz - 1), 1), in_cell((1, ny - 1, 0), 1)])
+    faces[:2, 1] = 0.02 * h[1]
+    faces[2:4, 1] = L[1] - 0.02 * h[1]
+    faces[4:6, 2] = 0.02 * h[2]
+    faces[6:8, 2] = L[2] - 0.02 * h[2]
+    pos = np.concatenate([bulk, full, in_cell((3, 4, 5), 4), in_cell((6, 2, 3), 6), faces])
+    n = len(pos)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return cp.ParticleFields(t(pos), t(rng.randn(n, 3) * 1e-3), t(rng.randn(n, 3) * 1e-2),
+                             t(4e-4 * (1.0 + 0.2 * rng.rand(n))),
+                             torch.ones(n, dtype=torch.bool, device=device))
+
+
+def _window_cfg(extras):
+    return cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
+                             exchange="window", slot_capacity=4, dy_in_kernel=True,
+                             window_dynamic=True, use_torque=extras, use_added_mass=extras)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic,extras,counts_mode", [
+    ((True, True, False), False, "bins"),
+    ((True, True, False), True, "bins"),
+    ((False, False, False), False, "bins"),
+    ((True, True, True), True, "cut"),
+    ((True, True, False), False, None),
+    ((False, False, False), True, None),
+])
+def test_window_kernel_edge_cases(cuda, periodic, extras, counts_mode):
+    """The window kernel against its plain version at KERNEL_RTOL on a plane
+    with no live rows, a plane whose window is full (its count above W, rows
+    cut), a cell with exactly cap particles and one past cap, particles on
+    the y/z seams and walls; with the bins' counts, with one plane's count
+    cut below its live rows (read on the card), and with counts=None; with
+    torque and added mass off and on."""
+    cfg = _window_cfg(extras)
+    bins = cw.window_bins(_edge_particles(cuda, seed=51), GRID, 4, EDGE_W,
+                          with_angvel=extras)
+    counts = bins.counts.clone()
+    assert int(counts[EMPTY_PLANE]) == 0 and int(counts[FULL_PLANE]) > EDGE_W
+    assert int(bins.n_overflow) > 0
+    if counts_mode == "cut":
+        counts[2] = counts[2] // 2
+    kw = {} if counts_mode is None else {"counts": counts}
+    Fp = _fluid_stack(GRID, periodic, cfg, cuda, seed=52)
+    args = (Fp, bins.dat_win, GRID, periodic, cfg, 0, 1e-6, 1000.0)
+    plain = cw.window_exchange_padded_reference(*args, **kw)
+    before = cw.window_exchange_padded.launches
+    kern = cw.window_exchange_padded(*args, **kw)
+    torch.cuda.synchronize()
+    assert cw.window_exchange_padded.launches == before + 1
+    assert kern[1] == plain[1]
+    for o, r in ((kern[0], plain[0]), (kern[2], plain[2])):
+        _assert_channels_close(o.reshape(o.shape[0] * o.shape[1], -1),
+                               r.reshape(r.shape[0] * r.shape[1], -1))
+    assert int(kern[2][-1].sum()) == int(plain[2][-1].sum()) > 0   # found slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic,extras,slab,bounded", [
+    ((True, True, False), False, None, True),
+    ((True, True, False), True, None, False),
+    ((False, False, False), False, (4, 4), True),
+    ((True, True, True), True, (8, 4), True),
+    ((False, False, False), True, (4, 4), False),
+])
+def test_planes_fused_kernel_edge_cases(cuda, periodic, extras, slab, bounded):
+    """The fused planes kernel against its plain version at KERNEL_RTOL on
+    the edge-case particles (an empty plane, exactly cap and past cap in a
+    cell, the seams and walls), on the whole grid and on slabs at x_off 4
+    and 8, with the compact records bounded by the particle count or by
+    every slot."""
+    cfg = _planes_cfg(extras)
+    pf = _edge_particles(cuda, seed=61)
+    Fp = _fluid_stack(GRID, periodic, cfg, cuda, seed=62)
+    kw, x0 = {}, 0
+    if slab is not None:
+        x0, nxc = slab
+        Fp = Fp[:, x0:x0 + nxc + 2].contiguous()
+        kw = dict(x_start=x0, n_loc=nxc)
+    bins = cpp.bin_particles_planes(pf, GRID, 4, with_angvel=extras, **kw)
+    if slab is None:
+        assert int(bins.n_overflow) >= 2
+    args = (Fp, bins.D, GRID, periodic, cfg, x0, 1e-6, 1000.0)
+    plain = cpp.fused_exchange_padded_reference(*args)
+    before = cpp.fused_exchange_padded.launches
+    kern = cpp.fused_exchange_padded(
+        *args, max_occupied=pf.pos.shape[0] if bounded else None)
+    torch.cuda.synchronize()
+    assert cpp.fused_exchange_padded.launches == before + 1
+    assert kern[1] == plain[1]
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+    _assert_channels_close(kern[2], plain[2])
+    assert int(kern[2][-1].sum()) == int(plain[2][-1].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["window", "planes"])
+def test_exchange_kernels_crowded_band(cuda, exchange):
+    """A plane holding cap = 4 particles in each of 100 of its 400 cells:
+    the cells pass's band halo holds more records than its shared memory
+    takes, so it reads them from device memory, and still agrees with the
+    plain version at KERNEL_RTOL."""
+    grid = Grid.box((4, 10, 40), (0.004, 0.010, 0.040))
+    rng = np.random.RandomState(81)
+    cells = rng.choice(10 * 40, 100, replace=False)
+    base = np.stack([np.ones(100), cells // 40, cells % 40], 1).repeat(4, 0)
+    pos = (base + rng.uniform(0.05, 0.95, base.shape)) * 1e-3
+    n = len(pos)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)  # noqa: E731
+    pf = cp.ParticleFields(t(pos), t(rng.randn(n, 3) * 1e-3), t(rng.randn(n, 3) * 1e-2),
+                           torch.full((n,), 4e-4, device=cuda),
+                           torch.ones(n, dtype=torch.bool, device=cuda))
+    periodic = (True, True, False)
+    if exchange == "window":
+        cfg = _window_cfg(False)
+        bins = cw.window_bins(pf, grid, 4, 512)
+        args = (_fluid_stack(grid, periodic, cfg, cuda, seed=82), bins.dat_win, grid, periodic,
+                cfg, 0, 1e-6, 1000.0)
+        plain = cw.window_exchange_padded_reference(*args, counts=bins.counts)
+        kern = cw.window_exchange_padded(*args, counts=bins.counts)
+    else:
+        cfg = _planes_cfg(False)
+        D = cpp.bin_particles_planes(pf, grid, 4).D
+        args = (_fluid_stack(grid, periodic, cfg, cuda, seed=82), D, grid, periodic, cfg, 0,
+                1e-6, 1000.0)
+        plain = cpp.fused_exchange_padded_reference(*args)
+        kern = cpp.fused_exchange_padded(*args, max_occupied=n)
+    torch.cuda.synchronize()
+    assert int(plain[2][-1].sum()) == n == int(kern[2][-1].sum())
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+    _assert_channels_close(kern[2].reshape(kern[2].shape[0] * 4, -1),
+                           plain[2].reshape(plain[2].shape[0] * 4, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["window", "planes"])
+def test_exchange_kernels_are_deterministic(cuda, exchange):
+    """Two launches of B1 or B4 on the same inputs give the same stacks and
+    per-slot results bit for bit (no float atomics; the planes kernel's
+    list of occupied slots may come out in another order)."""
+    extras = exchange == "planes"
+    periodic = (True, True, False)
+    pf = _edge_particles(cuda, seed=71)
+    if exchange == "window":
+        cfg = _window_cfg(extras)
+        bins = cw.window_bins(pf, GRID, 4, EDGE_W, with_angvel=extras)
+        Fp = _fluid_stack(GRID, periodic, cfg, cuda, seed=72)
+
+        def run():
+            return cw.window_exchange_padded(Fp, bins.dat_win, GRID, periodic, cfg, 0, 1e-6,
+                                             1000.0, counts=bins.counts)
+    else:
+        cfg = _planes_cfg(extras)
+        D = cpp.bin_particles_planes(pf, GRID, 4, with_angvel=extras).D
+        Fp = _fluid_stack(GRID, periodic, cfg, cuda, seed=72)
+
+        def run():
+            return cpp.fused_exchange_padded(Fp, D, GRID, periodic, cfg, 0, 1e-6, 1000.0,
+                                             max_occupied=pf.pos.shape[0])
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    assert float(first[0].abs().max()) > 0.0
 
 
 ASYMMETRIC = np.array([[1, 0, 0], [0, -1, 1], [-1, 1, -1], [0, 0, 1], [1, -1, 0]])

@@ -2,26 +2,40 @@
 // (sm_90a): the window kernel (window_exchange.cu) and the planes kernels
 // (planes_exchange.cu).
 //
-// Both exchanges work on a channel-major slot table D (C_d, cap, ncell):
-// slot (k, cell) holds the k-th particle of that cell (position, velocity,
-// radius [, angular velocity]); an empty slot has radius 0. The window
-// kernel stages D from its per-plane windows with anchor-relative
-// positions; the planes exchange bins D with torch ops and absolute
-// positions (Params::absolute). What is shared:
+// A slot (k, cell) holds the k-th particle of that cell (position,
+// velocity, radius [, angular velocity]). The window kernel reads its slots
+// from per-plane window rows with anchor-relative positions; the planes
+// kernels from a channel-major slot table D (C_d, cap, ncell) binned by
+// torch ops, with absolute positions (Params::absolute), where an empty
+// slot has radius 0. What is shared:
 //   * the separable Gaussian factors with the wall masks of non-periodic
 //     axes (`factor`), in the JAX package's operation order for either
 //     kind of position;
-//   * `slot_kernel`: one thread per slot interpolates the C_in input
-//     channels from the ghost-padded fluid stack Fp (C_in, nx+2, ny+2,
-//     nz+2), normalises, runs the force laws of
-//     `coupling_planes._physics_planes` (drag, Archimedes, optional added
-//     mass and rotational Stokes torque), writes the per-slot results pres
-//     (n_pres, cap, ncell) and the pre-normalised deposit values V
-//     (8, cap, ncell);
-//   * `interp_kernel`: the interpolation half alone (G and the weight norm);
-//   * `deposit_kernel`: one thread per (dx stack, cell) gathers w * V over
-//     the source slots that deposit into it, with the dy and dz shifts
-//     applied, so the scatter needs no atomics and is deterministic.
+//   * `interp_slot` (the C_in input channels interpolated from the
+//     ghost-padded fluid stack Fp (C_in, nx+2, ny+2, nz+2) over the
+//     stencil) and `slot_physics` (the force laws of
+//     `coupling_planes._physics_planes`: drag, Archimedes, optional added
+//     mass and rotational Stokes torque);
+//   * the two passes of the fused exchange, which work only where
+//     particles are:
+//       - the rows pass (`exchange_slot`, called by each kernel's own rows
+//         kernel for an occupied slot): interpolation and force laws into
+//         a compact record of kRec floats (the 8 pre-normalised deposit
+//         values, the 9 separable factors and the slot's n_pres results),
+//         ~10 MB at 100k particles, so it stays in L2. A per-cell
+//         occupancy byte (bit k: rank k holds a particle, so cap <= 8) and
+//         a per-slot record index, written only for occupied slots, say
+//         where the records are;
+//       - the cells pass (`cells_kernel`): one block per band of rows of
+//         one plane stages the band's and its +-1-row halo's occupancy
+//         bytes and records in shared memory; then one thread per cell
+//         gathers the records of the occupied source slots of its <= 19
+//         stencil offsets (weights = products of stored factors, no exp
+//         recomputed), writes all 3 dx stacks x 8 channels of its cell
+//         and its cap pres slots (the record's results, or zeros) once,
+//         coalesced, so nothing needs a memset. No atomics on floats: the
+//         sums run per offset in stencil order, ranks ascending, as the
+//         plain version orders them.
 // Channel counts are template parameters chosen from (torque, added mass);
 // the host passes the counts too and the launchers check that they agree.
 // Every kernel follows the plain PyTorch version's operation order and is
@@ -39,12 +53,24 @@ constexpr int kMaxOff = 27;
 constexpr int kCout = 8;    // deposit channels
 constexpr int kStacks = 3;  // one deposit stack per dx in {-1, 0, 1}
 constexpr int kThreads = 256;
+constexpr int kMaxCap = 8;  // ranks one occupancy byte can hold
+// record: deposit values (0:8), fx (8:11), fy (11:14), fz (14:17), the
+// per-slot results (17:17+n_pres, n_pres <= 7); 6 x 16 bytes
+constexpr int kRec = 24;
+constexpr int kRecFx = 8, kRecFy = 11, kRecFz = 14, kRecPres = 17;
+constexpr int kRec4 = kRec / 4;
+// cells pass: at most kBandRows output rows a block, about kHaloCells
+// staged cells, and the records of up to kSmemRecs slots in shared memory
+// (a block whose halo holds more reads them from device memory instead)
+constexpr int kBandRows = 8;
+constexpr int kHaloCells = 2048;
+constexpr int kSmemRecs = 256;
 
 // Layout of the host-side parameter arrays, mirrored in
 // ops/coupling_planes.py::_IPARAMS / _FPARAMS.
 enum IParam {
   I_NX, I_NY, I_NZ, I_CAP, I_NXG, I_XOFF, I_CD, I_CIN, I_NPRES, I_TORQUE,
-  I_AM, I_ABS, I_PERX, I_PERY, I_PERZ, I_W, I_CW, I_NOFF, I_OFF0
+  I_AM, I_ABS, I_PERX, I_PERY, I_PERZ, I_W, I_CW, I_NREC, I_NOFF, I_OFF0
 };
 // stencil offsets at I_OFF0 + 3*o + axis
 constexpr int I_COUNT = I_OFF0 + 3 * kMaxOff;
@@ -60,8 +86,13 @@ struct Params {
   int C_d, C_in, n_pres, torque, added_mass, absolute;
   int per[3];
   int W, C_w;              // window rows and channels (window kernel only)
+  int n_rec;               // records the scratch holds (fused exchanges)
   int n_off;
   int off[kMaxOff][3];
+  // the offsets grouped by dx = g - 1, each group in stencil order (the
+  // cells pass): n_grp[g] of them, (dy, dz) at grp[g][j]
+  int n_grp[kStacks];
+  int grp[kStacks][9][2];
   float dh[3][3];
   float origin[3], h[3];
   float inv2s2, nu, rho_f, nu_rho, oo_vrho, c43pi, am_rho, pi;
@@ -75,10 +106,18 @@ inline Params make_params(const int* ip, const float* fp) {
   P.C_d = ip[I_CD]; P.C_in = ip[I_CIN]; P.n_pres = ip[I_NPRES];
   P.torque = ip[I_TORQUE]; P.added_mass = ip[I_AM]; P.absolute = ip[I_ABS];
   P.per[0] = ip[I_PERX]; P.per[1] = ip[I_PERY]; P.per[2] = ip[I_PERZ];
-  P.W = ip[I_W]; P.C_w = ip[I_CW];
+  P.W = ip[I_W]; P.C_w = ip[I_CW]; P.n_rec = ip[I_NREC];
   P.n_off = ip[I_NOFF];
   for (int o = 0; o < kMaxOff; ++o)
     for (int a = 0; a < 3; ++a) P.off[o][a] = ip[I_OFF0 + 3 * o + a];
+  for (int g = 0; g < kStacks; ++g) P.n_grp[g] = 0;
+  for (int o = 0; o < P.n_off && o < kMaxOff; ++o) {
+    const int g = P.off[o][0] + 1;
+    if (g < 0 || g >= kStacks || P.n_grp[g] >= 9) continue;   // refused by fused_sizes_ok
+    P.grp[g][P.n_grp[g]][0] = P.off[o][1];
+    P.grp[g][P.n_grp[g]][1] = P.off[o][2];
+    ++P.n_grp[g];
+  }
   for (int a = 0; a < 3; ++a) {
     for (int d = 0; d < 3; ++d) P.dh[a][d] = fp[F_DH + 3 * a + d];
     P.origin[a] = fp[F_ORIGIN + a];
@@ -100,8 +139,75 @@ inline bool counts_agree(const Params& P) {
          && P.added_mass == (int)AM && P.n_off > 0 && P.n_off <= kMaxOff;
 }
 
-inline unsigned int blocks(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
+inline unsigned int blocks(long long n, long long per_block = kThreads) {
+  return (unsigned int)((n + per_block - 1) / per_block);
+}
+
+// Exclusive prefix sum of one int per thread over a block of kThreads;
+// *s_total gets the block's sum. Every thread of the block must call it.
+__device__ __forceinline__ int block_exclusive_scan(int n, int* s_warp, int* s_total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int q = 0; q < kThreads / 32; ++q) {
+      const int v = s_warp[q];
+      s_warp[q] = total;
+      total += v;
+    }
+    *s_total = total;
+  }
+  __syncthreads();
+  return s_warp[warp] + incl - n;
+}
+
+// Scratch of the fused exchanges, carved from one buffer of 4-byte words,
+// each segment rounded up to 4 words (16 bytes). Mirrored in
+// ops/coupling_planes.py::_scratch_words.
+//   occ: ceil(ncell / 4) words, one occupancy byte per cell;
+//   idx: cap * ncell, the record index of each occupied slot (the other
+//        entries are never written or read);
+//   lst: 1 + n_rec, the number of occupied slots, then their slot indices
+//        (planes only);
+//   rec: kRec * n_rec floats.
+struct Scratch {
+  unsigned int* occ;
+  int* idx;
+  int* lst;
+  float* rec;
+};
+
+inline long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+inline long long occ_words(const Params& P) { return round4((P.ncell + 3) / 4); }
+
+inline Scratch carve(const Params& P, int* base) {
+  Scratch S;
+  S.occ = reinterpret_cast<unsigned int*>(base);
+  S.idx = base + occ_words(P);
+  S.lst = S.idx + round4((long long)P.cap * P.ncell);
+  S.rec = reinterpret_cast<float*>(S.lst + round4(1 + (long long)P.n_rec));
+  return S;
+}
+
+// What the fused exchanges take beyond counts_agree: an occupancy byte per
+// cell, slot and record indices that fit an int, and a stencil in
+// {-1, 0, 1}^3 (so every offset sits in its dx group).
+inline bool fused_sizes_ok(const Params& P) {
+  if (P.cap < 1 || P.cap > kMaxCap || P.n_rec < 0 || P.n_off <= 0 || P.n_off > kMaxOff
+      || (long long)P.cap * P.ncell >= (1LL << 31))
+    return false;
+  for (int o = 0; o < P.n_off; ++o)
+    for (int a = 0; a < 3; ++a)
+      if (P.off[o][a] < -1 || P.off[o][a] > 1) return false;
+  return P.n_grp[0] + P.n_grp[1] + P.n_grp[2] == P.n_off;
 }
 
 // Separable factor of one axis for delta d in {-1, 0, 1} of a particle at
@@ -137,9 +243,14 @@ __device__ __forceinline__ void factors(const Params& P, float px, float py,
   }
 }
 
+// f[d + 1] by selects, so the factor arrays stay in registers.
+__device__ __forceinline__ float pick(const float* f, int d) {
+  return d < 0 ? f[0] : (d == 0 ? f[1] : f[2]);
+}
+
 __device__ __forceinline__ float weight(const Params& P, const float* fx,
                                         const float* fy, const float* fz, int o) {
-  return fx[P.off[o][0] + 1] * fy[P.off[o][1] + 1] * fz[P.off[o][2] + 1];
+  return pick(fx, P.off[o][0]) * pick(fy, P.off[o][1]) * pick(fz, P.off[o][2]);
 }
 
 // Slot coordinates (plane i, y, z) of a flat cell index.
@@ -170,7 +281,7 @@ __device__ __forceinline__ float interp_slot(const Params& P,
     const float* f = Fp + (i + 1 + P.off[o][0]) * sx + (y + 1 + P.off[o][1]) * sy
                      + (z + 1 + P.off[o][2]);
 #pragma unroll
-    for (int c = 0; c < CIN; ++c) acc[c] = acc[c] + w * f[c * sc];
+    for (int c = 0; c < CIN; ++c) acc[c] = acc[c] + w * __ldg(f + c * sc);
   }
   float inv_norm = norm > 0.0f ? 1.0f / norm : 0.0f;
 #pragma unroll
@@ -234,151 +345,201 @@ __device__ __forceinline__ void slot_physics(const Params& P, const float* G,
   res[3 + 3 * TORQUE] = found ? 1.0f : 0.0f;
 }
 
-// One thread per slot: interpolation, force laws, per-slot results and the
-// pre-normalised deposit values. Empty slots (radius 0) write zero results
-// and stop after one load; their V is never read.
+// The rows pass at one occupied slot of plane i, row y, column z, from its
+// staged data d (position, velocity, radius [, angular velocity]): its
+// record into rec (kRec floats, 16-byte aligned).
 template <bool TORQUE, bool AM>
-__global__ void slot_kernel(Params P, const float* __restrict__ Fp,
-                            const float* __restrict__ D, float* __restrict__ V,
-                            float* __restrict__ pres) {
+__device__ __forceinline__ void exchange_slot(const Params& P, const float* __restrict__ Fp,
+                                              int i, int y, int z, const float* d,
+                                              float* __restrict__ rec) {
   constexpr int CIN = 10 + 3 * TORQUE + 3 * AM;
-  constexpr int NPRES = 4 + 3 * TORQUE;
-  long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long n_slot = (long long)P.cap * P.ncell;
-  if (s >= n_slot) return;
-  float rad = D[6 * n_slot + s];
-  if (!(rad > 0.0f)) {
-#pragma unroll
-    for (int c = 0; c < NPRES; ++c) pres[c * n_slot + s] = 0.0f;
-    return;
-  }
-  int i, y, z;
-  cell_coords(P, s % P.ncell, &i, &y, &z);
   float fx[3], fy[3], fz[3];
-  factors(P, D[s], D[n_slot + s], D[2 * n_slot + s], i + P.x_off, y, z, fx, fy, fz);
+  factors(P, d[0], d[1], d[2], i + P.x_off, y, z, fx, fy, fz);
   float G[CIN];
   float inv_norm;
   float norm = interp_slot<CIN>(P, Fp, i, y, z, fx, fy, fz, G, &inv_norm);
-  float vel[3] = {D[3 * n_slot + s], D[4 * n_slot + s], D[5 * n_slot + s]};
-  float angvel[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (TORQUE) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) angvel[c] = D[(7 + c) * n_slot + s];
-  }
-  float res[NPRES], Vn[kCout];
-  slot_physics<TORQUE, AM>(P, G, norm, inv_norm, rad, vel, angvel, res, Vn);
-#pragma unroll
-  for (int c = 0; c < NPRES; ++c) pres[c * n_slot + s] = res[c];
-#pragma unroll
-  for (int c = 0; c < kCout; ++c) V[c * n_slot + s] = Vn[c];
+  const float zero3[3] = {0.0f, 0.0f, 0.0f};
+  float res[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, Vn[kCout];
+  slot_physics<TORQUE, AM>(P, G, norm, inv_norm, d[6], d + 3, TORQUE ? d + 7 : zero3,
+                           res, Vn);
+  float4* r4 = reinterpret_cast<float4*>(rec);
+  r4[0] = make_float4(Vn[0], Vn[1], Vn[2], Vn[3]);
+  r4[1] = make_float4(Vn[4], Vn[5], Vn[6], Vn[7]);
+  r4[2] = make_float4(fx[0], fx[1], fx[2], fy[0]);
+  r4[3] = make_float4(fy[1], fy[2], fz[0], fz[1]);
+  r4[4] = make_float4(fz[2], res[0], res[1], res[2]);
+  r4[5] = make_float4(res[3], res[4], res[5], res[6]);
 }
 
-// One thread per slot: the interpolation half alone, G (CIN, cap, ncell)
-// normalised and the weight norm (cap, ncell). Every slot is written; an
-// empty one gets zeros, as its gated weights give in the JAX kernel.
-template <int CIN>
-__global__ void interp_kernel(Params P, const float* __restrict__ Fp,
-                              const float* __restrict__ D, float* __restrict__ Gout,
-                              float* __restrict__ norm_out) {
-  long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long n_slot = (long long)P.cap * P.ncell;
-  if (s >= n_slot) return;
-  float rad = D[6 * n_slot + s];
-  if (!(rad > 0.0f)) {
-#pragma unroll
-    for (int c = 0; c < CIN; ++c) Gout[c * n_slot + s] = 0.0f;
-    norm_out[s] = 0.0f;
-    return;
-  }
-  int i, y, z;
-  cell_coords(P, s % P.ncell, &i, &y, &z);
-  float fx[3], fy[3], fz[3];
-  factors(P, D[s], D[n_slot + s], D[2 * n_slot + s], i + P.x_off, y, z, fx, fy, fz);
-  float G[CIN];
-  float inv_norm;
-  float norm = interp_slot<CIN>(P, Fp, i, y, z, fx, fy, fz, G, &inv_norm);
-#pragma unroll
-  for (int c = 0; c < CIN; ++c) Gout[c * n_slot + s] = G[c];
-  norm_out[s] = norm;
+// Rows of the cells pass's bands for a plane of ny x nz cells: about
+// kHaloCells staged cells a block, between 1 and kBandRows rows.
+__host__ __device__ inline int band_rows(const Params& P) {
+  const int r = kHaloCells / P.nz - 2;
+  return r < 1 ? 1 : (r > kBandRows ? kBandRows : r);
 }
 
-// One thread per (dx stack, cell): all 8 channels of
-// stks[dx][c, i, y, z] = sum_o sum_k w_o(slot) * V[c, slot] over the
-// source slots at (i, y - dy, z - dz) of the offsets o with that dx; the
-// weight is recomputed from D (raw Gaussian product, V pre-normalised).
-__global__ void deposit_kernel(Params P, const float* __restrict__ D,
-                               const float* __restrict__ V, float* __restrict__ stks) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)kStacks * P.ncell) return;
-  int ci = (int)(t / P.ncell);      // the stack of dx = ci - 1
-  long long cell = t % P.ncell;
-  int i, y, z;
-  cell_coords(P, cell, &i, &y, &z);
-  long long n_slot = (long long)P.cap * P.ncell;
-  float acc[kCout];
+// Dynamic shared memory of the cells pass: a record base (int) and an
+// occupancy byte for each staged cell.
+inline size_t cells_smem(const Params& P) {
+  return (size_t)(band_rows(P) + 2) * P.nz * (sizeof(int) + 1);
+}
+
+// The staged cell h of a cells block: the device-memory cell of row
+// y0 - 1 + h / nz (wrapped), column h % nz, of the plane at `plane`.
+__device__ __forceinline__ long long staged_cell(const Params& P, long long plane, int y0,
+                                                 int h) {
+  int ys = y0 - 1 + h / P.nz;
+  ys += ys < 0 ? P.ny : 0;
+  ys -= ys >= P.ny ? P.ny : 0;
+  return plane + (long long)ys * P.nz + h % P.nz;
+}
+
+// One cell (row ty of the band, column z) of the cells pass: its 3 x 8
+// stack values and its cap pres slots. STAGED: the halo's records are in
+// shared memory (s_rec, from s_base), else in device memory through idx.
+// The offset loops are unrolled over the dx groups, so the stencil is read
+// from the kernel's parameters at fixed places.
+template <bool STAGED>
+__device__ __forceinline__ void cells_one(const Params& P, long long plane, int y0, int ty,
+                                          int z, const unsigned char* s_occ,
+                                          const int* s_base, const float4* s_rec,
+                                          const int* __restrict__ idx,
+                                          const float* __restrict__ rec,
+                                          float* __restrict__ stks, float* __restrict__ pres) {
+  const int nz = P.nz;
+  const long long cell = plane + (long long)(y0 + ty) * nz + z;
+  auto record = [&](int h, int k, int m) -> const float* {
+    if (STAGED) return reinterpret_cast<const float*>(s_rec + (s_base[h] + m) * kRec4);
+    return rec + (long long)__ldg(idx + (long long)k * P.ncell + staged_cell(P, plane, y0, h))
+                     * kRec;
+  };
 #pragma unroll
-  for (int c = 0; c < kCout; ++c) acc[c] = 0.0f;
-  for (int o = 0; o < P.n_off; ++o) {
-    int dx = P.off[o][0], dy = P.off[o][1], dz = P.off[o][2];
-    if (dx + 1 != ci) continue;
-    // the source slot whose deposit lands on (y, z) after the (dy, dz) shift
-    int ys = ((y - dy) % P.ny + P.ny) % P.ny;
-    int zs = ((z - dz) % P.nz + P.nz) % P.nz;
-    long long src = ((long long)i * P.ny + ys) * P.nz + zs;
-    float contrib[kCout];
+  for (int ci = 0; ci < kStacks; ++ci) {   // the stack of dx = ci - 1
+    float acc[kCout];
 #pragma unroll
-    for (int c = 0; c < kCout; ++c) contrib[c] = 0.0f;
-    for (int k = 0; k < P.cap; ++k) {
-      long long s = (long long)k * P.ncell + src;
-      float rad = D[6 * n_slot + s];
-      if (!(rad > 0.0f)) continue;
-      float w = factor(P, 0, D[s], dx, i + P.x_off, P.nx_global)
-                * factor(P, 1, D[n_slot + s], dy, ys, P.ny)
-                * factor(P, 2, D[2 * n_slot + s], dz, zs, P.nz);
+    for (int c = 0; c < kCout; ++c) acc[c] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kCout; ++c) contrib[c] = contrib[c] + w * V[c * n_slot + s];
+    for (int j = 0; j < 9; ++j) {           // its offsets, in stencil order
+      if (j >= P.n_grp[ci]) break;
+      const int dy = P.grp[ci][j][0], dz = P.grp[ci][j][1];
+      int zs = z - dz;
+      zs += zs < 0 ? nz : 0;
+      zs -= zs >= nz ? nz : 0;
+      const int h = (ty + 1 - dy) * nz + zs;
+      unsigned int bits = s_occ[h];
+      if (!bits) continue;
+      float contrib[kCout];
+#pragma unroll
+      for (int c = 0; c < kCout; ++c) contrib[c] = 0.0f;
+      for (int m = 0; bits; ++m) {          // the occupied ranks, ascending
+        const int k = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float* r = record(h, k, m);
+        const float w = r[kRecFx + ci] * r[kRecFy + dy + 1] * r[kRecFz + dz + 1];
+#pragma unroll
+        for (int c = 0; c < kCout; ++c) contrib[c] = contrib[c] + w * r[c];
+      }
+#pragma unroll
+      for (int c = 0; c < kCout; ++c) acc[c] = acc[c] + contrib[c];
     }
 #pragma unroll
-    for (int c = 0; c < kCout; ++c) acc[c] = acc[c] + contrib[c];
+    for (int c = 0; c < kCout; ++c) stks[((long long)ci * kCout + c) * P.ncell + cell] = acc[c];
   }
+  const int h = (ty + 1) * nz + z;
+  const unsigned int own = s_occ[h];
+  const long long n_slot = (long long)P.cap * P.ncell;
+  for (int k = 0, m = 0; k < P.cap; ++k) {
+    const float* r = ((own >> k) & 1u) ? record(h, k, m++) : nullptr;
+    for (int c = 0; c < P.n_pres; ++c)
+      pres[c * n_slot + (long long)k * P.ncell + cell] = r ? r[kRecPres + c] : 0.0f;
+  }
+}
+
+// The cells pass. Block b covers plane i = b / bands, output rows y0 ..
+// y0 + rows - 1 (a band), all nz columns; it stages the occupancy bytes of
+// rows y0 - 1 .. y0 + rows (wrapped, the sources of the band's dy shifts)
+// and, where they fit, their records, in ascending (cell, rank) order.
+// Then one thread per cell (i, y, z):
+//   stks[dx][c, i, y, z] = sum over the offsets o with that dx, in stencil
+//   order, of the sum over the occupied ranks of the source cell (i,
+//   y - dy, z - dz) (wrapped), ascending, of w * V[c], with w the product
+//   fx[dx] * fy[dy] * fz[dz] of the source's stored factors;
+// and pres of the cell's cap slots: the record's results, or zeros.
+__global__ void cells_kernel(Params P, const unsigned char* __restrict__ occ,
+                             const int* __restrict__ idx, const float* __restrict__ rec,
+                             float* __restrict__ stks, float* __restrict__ pres) {
+  extern __shared__ int s_dyn[];
+  __shared__ float4 s_rec[kSmemRecs * kRec4];
+  __shared__ int s_warp[kThreads / 32];
+  __shared__ int s_total;
+  const int nz = P.nz;
+  const int band = band_rows(P);
+  const int bands = (P.ny + band - 1) / band;
+  const int i = blockIdx.x / bands;
+  const int y0 = (blockIdx.x % bands) * band;
+  const int rows = min(band, P.ny - y0);
+  const int n_halo = (rows + 2) * nz;
+  int* s_base = s_dyn;
+  unsigned char* s_occ = reinterpret_cast<unsigned char*>(s_dyn + (band + 2) * nz);
+  const long long plane = (long long)i * P.ny * nz;
+
+  // stage: each thread a run of consecutive cells, record bases by a scan
+  const int per = (n_halo + kThreads - 1) / kThreads;
+  const int h0 = min((int)threadIdx.x * per, n_halo), h1 = min(h0 + per, n_halo);
+  int n = 0;
+  for (int h = h0; h < h1; ++h) {
+    const unsigned int b = __ldg(occ + staged_cell(P, plane, y0, h));
+    s_occ[h] = (unsigned char)b;
+    n += __popc(b);
+  }
+  int p = block_exclusive_scan(n, s_warp, &s_total);
+  const bool staged = s_total <= kSmemRecs;
+  for (int h = h0; h < h1; ++h) {
+    s_base[h] = p;
+    unsigned int b = s_occ[h];
+    if (!staged) continue;
+    const long long src = staged_cell(P, plane, y0, h);
+    while (b) {
+      const int k = __ffs(b) - 1;
+      b &= b - 1;
+      const float4* g = reinterpret_cast<const float4*>(
+          rec + (long long)__ldg(idx + (long long)k * P.ncell + src) * kRec);
 #pragma unroll
-  for (int c = 0; c < kCout; ++c) {
-    stks[((long long)ci * kCout + c) * P.ncell + cell] = acc[c];
+      for (int q = 0; q < kRec4; ++q) s_rec[p * kRec4 + q] = __ldg(g + q);
+      ++p;
+    }
+  }
+  __syncthreads();
+
+  for (int t = threadIdx.x; t < rows * nz; t += kThreads) {
+    if (staged)
+      cells_one<true>(P, plane, y0, t / nz, t % nz, s_occ, s_base, s_rec, idx, rec, stks, pres);
+    else
+      cells_one<false>(P, plane, y0, t / nz, t % nz, s_occ, s_base, s_rec, idx, rec, stks, pres);
   }
 }
 
-// Launch slot_kernel for the (torque, added mass) instance P asks for.
-template <bool TORQUE, bool AM>
-cudaError_t launch_slots_t(const Params& P, const float* Fp, const float* D,
-                           float* V, float* pres, cudaStream_t st) {
-  if (!counts_agree<TORQUE, AM>(P)) return cudaErrorInvalidValue;
-  slot_kernel<TORQUE, AM><<<blocks((long long)P.cap * P.ncell), kThreads, 0, st>>>(
-      P, Fp, D, V, pres);
-  return cudaGetLastError();
-}
-
-inline cudaError_t launch_slots(const Params& P, const float* Fp, const float* D,
-                                float* V, float* pres, cudaStream_t st) {
-  if (P.torque) {
-    return P.added_mass ? launch_slots_t<true, true>(P, Fp, D, V, pres, st)
-                        : launch_slots_t<true, false>(P, Fp, D, V, pres, st);
+inline cudaError_t launch_cells(const Params& P, const Scratch& S, float* stks, float* pres,
+                                cudaStream_t st) {
+  const size_t smem = cells_smem(P);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  return P.added_mass ? launch_slots_t<false, true>(P, Fp, D, V, pres, st)
-                      : launch_slots_t<false, false>(P, Fp, D, V, pres, st);
-}
-
-inline cudaError_t launch_deposit(const Params& P, const float* D, const float* V,
-                                  float* stks, cudaStream_t st) {
-  if (P.n_off <= 0 || P.n_off > kMaxOff) return cudaErrorInvalidValue;
-  deposit_kernel<<<blocks((long long)kStacks * P.ncell), kThreads, 0, st>>>(P, D, V, stks);
+  const long long n_blocks = (long long)P.nx * ((P.ny + band_rows(P) - 1) / band_rows(P));
+  cells_kernel<<<(unsigned int)n_blocks, kThreads, smem, st>>>(
+      P, reinterpret_cast<const unsigned char*>(S.occ), S.idx, S.rec, stks, pres);
   return cudaGetLastError();
 }
 
 }  // namespace yofc
 
-// Sizes of the parameter arrays, so the Python side can check its layout.
-extern "C" int yofc_param_counts(int* n_int, int* n_float) {
+// Sizes of the parameter arrays and of a record, so the Python side can
+// check its layout.
+extern "C" int yofc_param_counts(int* n_int, int* n_float, int* n_rec_floats) {
   *n_int = yofc::I_COUNT;
   *n_float = yofc::F_COUNT;
+  *n_rec_floats = yofc::kRec;
   return yofc::kMaxOff;
 }

@@ -13,26 +13,27 @@
 // staged, and n_pres = 4, or 7 with the torque.
 //
 // What bounds it on this card: bytes. At 128^3 with 100k particles it
-// reads about 88 MB of Fp and writes about 200 MB of stacks and about
-// 134 MB of pres; the arithmetic (19 Gaussian weights and a drag law per
-// occupied slot) is small, and only ~1% of the cap * ncells slots are
-// occupied in the dilute main-path configuration.
+// reads about 88 MB of Fp and the live window rows, and writes about
+// 200 MB of stacks and about 134 MB of pres; the arithmetic (19 Gaussian
+// weights and a drag law per occupied slot) is small, and only ~1% of the
+// cap * ncells slots are occupied in the dilute main-path configuration.
 //
 // What the design does about it. The TPU kernel staged each plane's window
 // into slot planes with one-hot bf16 matmuls because the TPU has no
-// scatter. Here every kept window row owns a unique (rank, plane, y, z)
-// slot, so staging is a conflict-free store of hi + lo (exact in f32).
-// Three launches, each one thread per output element:
-//   1. stage:   one thread per window row -> slot table D (C_d, cap, nx,
-//               ny, nz) (zeroed by the caller); rows past counts[i], with
-//               y < 0 or with rank >= cap do nothing.
-//   2. slots:   exchange_common.cuh's slot_kernel (interpolation, force
-//               laws, pres and the pre-normalised deposit values V).
-//   3. deposit: exchange_common.cuh's deposit_kernel (a gather, no atomics).
-// Every empty slot is rejected after reading its radius, so the traffic
-// that remains is the slot-table zeroing, the radius planes and the
-// outputs. Shared-memory tiling, fusing the launches and TMA are left to
-// later work.
+// scatter. Here nothing is staged: work is done only where particles are.
+//   0. memset of the occupancy bytes (one per cell, 2 MB at 128^3).
+//   1. rows: one thread per window row (i, w). Rows past counts[i] (read
+//      on the card, no host copy), with y < 0, with rank >= cap or radius
+//      0 do nothing; a live row owns slot (rank, i, y, z) and runs
+//      exchange_common.cuh's rows pass from hi + lo (exact in f32): its
+//      record at index i * W + w, the slot's record index and its
+//      occupancy bit (an integer atomicOr: ranks of one cell are different
+//      rows). The rows of a plane are sorted by cell and the live ones come
+//      first, so whole warps run the interpolation.
+//   2. cells: exchange_common.cuh's cells pass (a gather through shared
+//      memory, no atomics), which writes stks and pres once, coalesced.
+// So the only dense traffic is the outputs' single write, Fp and the
+// 2 MB occupancy plane; the records (96 B a live row) stay in L2.
 
 #include "exchange_common.cuh"
 
@@ -40,29 +41,52 @@ using namespace yofc;
 
 namespace {
 
-__global__ void stage_kernel(Params P, const float* __restrict__ dat_win,
-                             const int* __restrict__ counts, float* __restrict__ D) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+template <bool TORQUE, bool AM>
+__global__ void window_rows_kernel(Params P, const float* __restrict__ Fp,
+                                   const float* __restrict__ dat_win,
+                                   const int* __restrict__ counts, Scratch S) {
+  constexpr int CD = 7 + 3 * TORQUE;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)P.nx * P.W) return;
-  int i = (int)(t / P.W);
-  int w = (int)(t % P.W);
-  if (counts != nullptr) {
-    int c = min(max(counts[i], 0), P.W);
-    if (w >= c) return;
-  }
-  const int C_d = P.C_d;
+  const int i = (int)(t / P.W);
+  const int w = (int)(t % P.W);
+  if (counts != nullptr && w >= min(max(__ldg(counts + i), 0), P.W)) return;
   const float* row = dat_win + (long long)i * P.C_w * P.W + w;
-  float y = row[(long long)(2 * C_d) * P.W];
+  const float y = __ldg(row + (long long)(2 * CD) * P.W);
   if (!(y >= 0.0f)) return;
-  int yi = (int)y;
-  int zi = (int)row[(long long)(2 * C_d + 1) * P.W];
-  int k = (int)row[(long long)(2 * C_d + 2) * P.W];
+  const int yi = (int)y;
+  const int zi = (int)__ldg(row + (long long)(2 * CD + 1) * P.W);
+  const int k = (int)__ldg(row + (long long)(2 * CD + 2) * P.W);
   if (k < 0 || k >= P.cap || yi >= P.ny || zi < 0 || zi >= P.nz) return;
-  long long cell = ((long long)i * P.ny + yi) * P.nz + zi;
-  for (int c = 0; c < C_d; ++c) {
-    D[((long long)c * P.cap + k) * P.ncell + cell] =
-        row[(long long)c * P.W] + row[(long long)(C_d + c) * P.W];
+  float d[CD];
+#pragma unroll
+  for (int c = 0; c < CD; ++c)
+    d[c] = __ldg(row + (long long)c * P.W) + __ldg(row + (long long)(CD + c) * P.W);
+  if (!(d[6] > 0.0f)) return;   // an empty slot, as in the plain version
+  const long long cell = ((long long)i * P.ny + yi) * P.nz + zi;
+  const long long s = (long long)k * P.ncell + cell;
+  exchange_slot<TORQUE, AM>(P, Fp, i, yi, zi, d, S.rec + t * kRec);
+  S.idx[s] = (int)t;
+  atomicOr(S.occ + (cell >> 2), 1u << (8 * (int)(cell & 3) + k));
+}
+
+template <bool TORQUE, bool AM>
+cudaError_t launch_rows_t(const Params& P, const float* Fp, const float* dat_win,
+                          const int* counts, const Scratch& S, cudaStream_t st) {
+  if (!counts_agree<TORQUE, AM>(P)) return cudaErrorInvalidValue;
+  window_rows_kernel<TORQUE, AM><<<blocks((long long)P.nx * P.W), kThreads, 0, st>>>(
+      P, Fp, dat_win, counts, S);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rows(const Params& P, const float* Fp, const float* dat_win,
+                        const int* counts, const Scratch& S, cudaStream_t st) {
+  if (P.torque) {
+    return P.added_mass ? launch_rows_t<true, true>(P, Fp, dat_win, counts, S, st)
+                        : launch_rows_t<true, false>(P, Fp, dat_win, counts, S, st);
   }
+  return P.added_mass ? launch_rows_t<false, true>(P, Fp, dat_win, counts, S, st)
+                      : launch_rows_t<false, false>(P, Fp, dat_win, counts, S, st);
 }
 
 }  // namespace
@@ -70,21 +94,24 @@ __global__ void stage_kernel(Params P, const float* __restrict__ dat_win,
 extern "C" {
 
 // All pointers are device pointers except iparams/fparams (host). counts
-// may be null (every window row is read). D must be zero on entry. Returns
-// the first nonzero cudaGetLastError() after a launch (or
-// cudaErrorInvalidValue for parameters the kernels do not take), else 0.
+// may be null (every window row is read). scratch holds the layout of
+// exchange_common.cuh's `carve` with n_rec = nx * W records; nothing in it
+// needs to be set on entry. Returns the first nonzero cudaGetLastError()
+// after a launch (or cudaErrorInvalidValue for parameters the kernels do
+// not take), else 0.
 int yofc_window_exchange(const int* iparams, const float* fparams,
                          const float* Fp, const float* dat_win, const int* counts,
-                         float* D, float* V, float* stks, float* pres,
-                         void* stream) {
+                         int* scratch, float* stks, float* pres, void* stream) {
   Params P = make_params(iparams, fparams);
-  if (P.absolute || P.C_w != 2 * P.C_d + 3) return (int)cudaErrorInvalidValue;
+  if (P.absolute || P.C_w != 2 * P.C_d + 3 || !fused_sizes_ok(P)
+      || (long long)P.n_rec != (long long)P.nx * P.W)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  Scratch S = carve(P, scratch);
   cudaError_t err;
-  stage_kernel<<<blocks((long long)P.nx * P.W), kThreads, 0, st>>>(P, dat_win, counts, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch_slots(P, Fp, D, V, pres, st)) != cudaSuccess) return (int)err;
-  if ((err = launch_deposit(P, D, V, stks, st)) != cudaSuccess) return (int)err;
+  if ((err = cudaMemsetAsync(S.occ, 0, occ_words(P) * 4, st)) != cudaSuccess) return (int)err;
+  if ((err = launch_rows(P, Fp, dat_win, counts, S, st)) != cudaSuccess) return (int)err;
+  if ((err = launch_cells(P, S, stks, pres, st)) != cudaSuccess) return (int)err;
   return 0;
 }
 

@@ -32,6 +32,7 @@ layout.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -341,9 +342,11 @@ DX_COMBOS = ((-1, 0), (0, 0), (1, 0))
 
 _IPARAMS = ("nx", "ny", "nz", "cap", "nx_global", "x_off", "C_d", "C_in", "n_pres",
             "torque", "added_mass", "absolute", "per_x", "per_y", "per_z", "W", "C_w",
-            "n_off")
+            "n_rec", "n_off")
 _MAX_OFF = 27
 _N_FPARAMS = 23
+_REC_FLOATS = 24     # floats of one slot record of the fused exchanges (kRec)
+_MAX_CAP = 8         # ranks one occupancy byte holds (kMaxCap)
 
 
 def _channel_counts(cfg: cp.CouplingConfig):
@@ -360,19 +363,29 @@ def _padded_shape(C: int, nxl: int, grid: Grid):
 
 def _kernel_params(grid: Grid, periodic, cfg: cp.CouplingConfig, nxl: int, C_d: int,
                    C_in: int, x_off: int, *, absolute: bool, nu: float = 1.0,
-                   rho_f: float = 1.0, W: int = 0, C_w: int = 0):
+                   rho_f: float = 1.0, W: int = 0, C_w: int = 0, n_rec: int = 0):
     """Host parameter arrays (int32, float32) of the exchange kernels, in
     the layout of the IParam/FParam enums of csrc/exchange_common.cuh.
     Every float is rounded from the same double-precision expression as
     the plain version uses. nu and rho_f matter only to the kernels that
-    run the force laws."""
+    run the force laws, n_rec (records of scratch) only to the fused
+    exchanges. The arrays are built once per distinct argument set and
+    are read-only."""
+    return _kernel_params_cached(grid, tuple(bool(p) for p in periodic), cfg, int(nxl),
+                                 int(C_d), int(C_in), int(x_off), bool(absolute), float(nu),
+                                 float(rho_f), int(W), int(C_w), int(n_rec))
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_params_cached(grid, periodic, cfg, nxl, C_d, C_in, x_off, absolute, nu, rho_f,
+                          W, C_w, n_rec):
     offsets = cp.stencil_offsets(cfg)
     vals = dict(nx=nxl, ny=grid.shape[1], nz=grid.shape[2], cap=cfg.slot_capacity,
                 nx_global=grid.shape[0], x_off=x_off, C_d=C_d, C_in=C_in,
                 n_pres=_channel_counts(cfg)[2], torque=int(cfg.use_torque),
                 added_mass=int(cfg.use_added_mass), absolute=int(absolute),
                 per_x=int(periodic[0]), per_y=int(periodic[1]), per_z=int(periodic[2]),
-                W=W, C_w=C_w, n_off=len(offsets))
+                W=W, C_w=C_w, n_rec=n_rec, n_off=len(offsets))
     ip = np.zeros(len(_IPARAMS) + 3 * _MAX_OFF, np.int32)
     ip[:len(_IPARAMS)] = [vals[k] for k in _IPARAMS]
     ip[len(_IPARAMS):len(_IPARAMS) + 3 * len(offsets)] = np.asarray(offsets).reshape(-1)
@@ -382,7 +395,25 @@ def _kernel_params(grid: Grid, periodic, cfg: cp.CouplingConfig, nxl: int, C_d: 
     fp[12:15] = [float(h) for h in grid.spacing]
     fp[15:] = (_inv2s2(grid), nu, rho_f, nu * rho_f, 1.0 / (grid.cell_volume * rho_f),
                (4.0 / 3.0) * math.pi, cfg.added_mass_coeff * rho_f, math.pi)
+    ip.flags.writeable = False
+    fp.flags.writeable = False
     return ip, fp
+
+
+def _scratch_words(ncl: int, cap: int, n_rec: int) -> int:
+    """4-byte words of the fused exchanges' scratch (`carve` in
+    csrc/exchange_common.cuh): occupancy bytes, per-slot record indices,
+    the list of occupied slots and n_rec records, each segment rounded up
+    to 4 words."""
+    def r4(n):
+        return -(-n // 4) * 4
+    return r4(-(-ncl // 4)) + r4(cap * ncl) + r4(1 + n_rec) + _REC_FLOATS * n_rec
+
+
+def _check_cap(kernel: str, cap: int):
+    if not 1 <= cap <= _MAX_CAP:
+        raise ValueError(f"{kernel}: slot_capacity {cap} not taken (the kernel keeps one "
+                         f"occupancy byte per cell: 1 <= cap <= {_MAX_CAP})")
 
 
 def _on_cpu(kernel: str, t: torch.Tensor, cfg: cp.CouplingConfig) -> bool:
@@ -409,16 +440,22 @@ def _check_cuda(kernel: str, name: str, t: torch.Tensor, shape, device,
             f"{t.device} (contiguous={t.is_contiguous()})")
 
 
+_LAYOUT_CHECKED = set()
+
+
 def _launch(lib_name: str, fn: str, kernel: str, ip, fp, *tensors, device):
     """Call one entry point of a kernel library on the current stream;
-    raise if the library's parameter layout differs or a launch fails."""
+    raise if a launch fails, or, at the first call into each library, if
+    its parameter or record layout differs from this module's."""
     from ..kernels import call, library
-    lib = library(lib_name)
-    n_int, n_float = ctypes.c_int(), ctypes.c_int()
-    lib.yofc_param_counts(ctypes.byref(n_int), ctypes.byref(n_float))
-    if (n_int.value, n_float.value) != (ip.size, fp.size):
-        raise RuntimeError(f"{kernel}: parameter layout of the library "
-                           f"{(n_int.value, n_float.value)} != {(ip.size, fp.size)}")
+    if lib_name not in _LAYOUT_CHECKED:
+        counts = [ctypes.c_int() for _ in range(3)]
+        library(lib_name).yofc_param_counts(*(ctypes.byref(c) for c in counts))
+        got = tuple(c.value for c in counts)
+        if got != (ip.size, fp.size, _REC_FLOATS):
+            raise RuntimeError(f"{kernel}: parameter layout of the library {got} != "
+                               f"{(ip.size, fp.size, _REC_FLOATS)}")
+        _LAYOUT_CHECKED.add(lib_name)
     call(lib_name, fn, kernel, ip, fp, *tensors, device=device)
 
 
@@ -540,27 +577,33 @@ def fused_exchange_padded_reference(Fp, D, grid: Grid, periodic,
 
 
 def fused_exchange_padded(Fp: torch.Tensor, D: torch.Tensor, grid: Grid, periodic,
-                          cfg: cp.CouplingConfig, x_off, nu: float, rho_f: float):
+                          cfg: cp.CouplingConfig, x_off, nu: float, rho_f: float, *,
+                          max_occupied: Optional[int] = None):
     """-> (stks (3, 8, nxl, ny, nz), combos, pres) where pres is (4, cap,
     ncl) [fx fy fz found] or (7, ...) with the torque in channels 3:6, for a
     (possibly slab-local) padded input stack at global plane x_off. CPU
     tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise. ``max_occupied`` bounds the occupied slots of D (the particles
+    binned into it) and sizes the kernel's compact per-slot records; None
+    allows every slot (cap * ncl records of 96 bytes). The plain version
+    ignores it."""
     kernel = "planes fused kernel"
     if _on_cpu(kernel, Fp, cfg):
         return fused_exchange_padded_reference(Fp, D, grid, periodic, cfg, x_off, nu, rho_f)
     nxl, ny, nz = Fp.shape[1] - 2, Fp.shape[2] - 2, Fp.shape[3] - 2
     cap, ncl, dev = cfg.slot_capacity, nxl * ny * nz, Fp.device
     C_d, C_in, n_pres = _channel_counts(cfg)
+    _check_cap(kernel, cap)
     _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
     _check_cuda(kernel, "D", D, (C_d, cap, ncl), dev)
+    n_rec = cap * ncl if max_occupied is None else min(int(max_occupied), cap * ncl)
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
-                            absolute=True, nu=nu, rho_f=rho_f)
-    V = torch.empty((8, cap, ncl), dtype=torch.float32, device=dev)
+                            absolute=True, nu=nu, rho_f=rho_f, n_rec=n_rec)
+    scratch = torch.empty(_scratch_words(ncl, cap, n_rec), dtype=torch.int32, device=dev)
     stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
     pres = torch.empty((n_pres, cap, ncl), dtype=torch.float32, device=dev)
-    _launch("planes_exchange", "yofc_planes_fused", kernel, ip, fp, Fp, D, V, stks, pres,
-            device=dev)
+    _launch("planes_exchange", "yofc_planes_fused", kernel, ip, fp, Fp, D, scratch, stks,
+            pres, device=dev)
     fused_exchange_padded.launches += 1
     return stks, list(DX_COMBOS), pres
 
@@ -656,7 +699,8 @@ def gaussian_coupling_planes(
 
     if cfg.fused_planes:
         stks, combos, per = fused_exchange_padded(
-            pad_wrap_zero(F, periodic), bins.D, grid, periodic, cfg, 0, nu, rho_f)
+            pad_wrap_zero(F, periodic), bins.D, grid, periodic, cfg, 0, nu, rho_f,
+            max_occupied=pf.pos.shape[0])
         fields = _stack_epilogue(stks, combos)
     else:
         G, norm = interp_planes(F, bins.D, grid, periodic, cfg)
@@ -756,7 +800,7 @@ def gaussian_coupling_planes_chunked(
         # slab fluid stack: padded-global plane x0 is global plane x0 - 1
         Fp_c = Fpg[:, x0:x0 + nxc + 2].contiguous()
         stks, combos, pres = fused_exchange_padded(Fp_c, D, grid, periodic, cfg, x0,
-                                                   nu, rho_f)
+                                                   nu, rho_f, max_occupied=N_w)
 
         # epilogue: dy rolls slab-local, dx into a halo-extended slab
         ext = torch.zeros((8, nxc + 2, ny, nz), dtype=dtype, device=dev)

@@ -3,9 +3,9 @@
 
 Particles are sorted by flat cell id, so each x-plane's population is a
 contiguous window of the sorted arrays; `window_bins` gathers a fixed-size
-(nx, C_w, W) window tensor, and `window_exchange_padded` stages each
-plane's window into (C_d, cap, ny, nz) slot planes, interpolates the fluid
-inputs, evaluates the force laws and deposits the coupling fields. Same
+(nx, C_w, W) window tensor, and `window_exchange_padded` interpolates the
+fluid inputs at each live window row's slot, evaluates the force laws and
+deposits the coupling fields. Same
 overflow contract as the JAX package: a particle at rank >= slot_capacity
 in its cell, or beyond the window W of its plane, is counted in
 n_overflow and uncoupled for the step.
@@ -26,6 +26,7 @@ from . import coupling as cp
 from .coupling_planes import (
     DX_COMBOS,
     _channel_counts,
+    _check_cap,
     _check_cuda,
     _coupling_result,
     _input_stack,
@@ -34,6 +35,7 @@ from .coupling_planes import (
     _launch,
     _on_cpu,
     _padded_shape,
+    _scratch_words,
     _slot_exchange,
     _stack_epilogue,
     _unbin_rows,
@@ -151,8 +153,9 @@ def window_exchange_padded(
 ):
     """-> (stks, combos, pres), the contract of the JAX launcher. CPU
     tensors run the plain version; CUDA tensors launch the kernel of
-    csrc/window_exchange.cu or raise. ``window_exchange_padded.launches``
-    counts kernel launches."""
+    csrc/window_exchange.cu or raise. The kernel stages no slot table: it
+    keeps one 96-byte record per window row in its scratch.
+    ``window_exchange_padded.launches`` counts kernel launches."""
     kernel = "window kernel"
     if _on_cpu(kernel, Fp, cfg):
         return window_exchange_padded_reference(
@@ -163,20 +166,20 @@ def window_exchange_padded(
     C_w = 2 * C_d + 3
     W = dat_win.shape[-1]
     dev = Fp.device
+    _check_cap(kernel, cap)
     _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
     _check_cuda(kernel, "dat_win", dat_win, (nxl, C_w, W), dev)
     if counts is not None:
         _check_cuda(kernel, "counts", counts, (nxl,), dev, dtype=torch.int32)
 
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
-                            absolute=False, nu=nu, rho_f=rho_f, W=W, C_w=C_w)
+                            absolute=False, nu=nu, rho_f=rho_f, W=W, C_w=C_w, n_rec=nxl * W)
     ncell = nxl * ny * nz
-    D = torch.zeros((C_d, cap, nxl, ny, nz), dtype=torch.float32, device=dev)
-    V = torch.empty((8, cap, ncell), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_scratch_words(ncell, cap, nxl * W), dtype=torch.int32, device=dev)
     stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
     pres = torch.empty((n_pres, cap, ncell), dtype=torch.float32, device=dev)
     _launch("window_exchange", "yofc_window_exchange", kernel, ip, fp, Fp, dat_win,
-            counts, D, V, stks, pres, device=dev)
+            counts, scratch, stks, pres, device=dev)
     window_exchange_padded.launches += 1
     return stks, list(DX_COMBOS), pres
 
