@@ -25,11 +25,14 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
     terminal velocity must be Stokes';
   * B7, the per-plane dynamic-trip-count staging of the prototype
     `scripts/proto_dynwin.py`, through its own script;
-then holds the 4-slab chunked planes exchange against the whole-grid one,
-checks the bench's health conditions and that each path went through its
-kernels, and checks the CUDA path against the CPU path of the same port
-on a small case for the window, planes and sparse exchanges and for PISO
-with a box obstacle.
+  * the planes slice's CLI with more than 8 slots a cell: `pimplefoam
+    --fast --slot-capacity 9 <case>`, a few steps;
+then holds B1, B4 and B6 at slot capacities 9 and 16 against their plain
+versions on a crowded lattice, the 4-slab chunked planes exchange against
+the whole-grid one, checks the bench's health conditions and that each
+path went through its kernels, and checks the CUDA path against the CPU
+path of the same port on a small case for the window, planes and sparse
+exchanges and for PISO with a box obstacle.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (times, the least time the card could take, and a PyTorch call's
@@ -58,6 +61,7 @@ from yade_openfoam_coupling_tpu_torch.scripts.exchange_timing import (
 
 NX, N_PARTICLES, RADIUS, DT = 128, 100_000, 4e-4, 5e-5
 STEPS_PER_RUN, TIMED_RUNS = 10, 2
+CAPACITIES = (9, 16)          # slot capacities past one byte of rank bits
 KERNEL_RTOL = 1e-5
 JAX_OPS = "yade_openfoam_coupling_tpu/ops/"
 PORT_CSRC = "yade_openfoam_coupling_tpu_torch/csrc/"
@@ -196,6 +200,24 @@ def seeded_inputs(cfg, device, C_in, seed=0):
     return pf, F, pad_wrap_zero(F, cfg.periodic_axes())
 
 
+def crowded_inputs(cfg, device, C_in, crowds=100, per_crowd=20):
+    """`seeded_inputs` with its last crowds * per_crowd particles moved into
+    `crowds` seeded cells, per_crowd to a cell: ranks past 16 are filled,
+    and 9 or 16 slots a cell overflow."""
+    import torch
+    pf, F, Fp = seeded_inputs(cfg, device, C_in)
+    grid = cfg.grid
+    rng = np.random.RandomState(5)
+    n = crowds * per_crowd
+    cells = rng.choice(grid.ncells, crowds, replace=False)
+    idx = np.stack(np.unravel_index(cells, grid.shape), 1).repeat(per_crowd, 0)
+    pos = (idx + rng.uniform(0.05, 0.95, idx.shape)) * np.asarray(grid.spacing) + np.asarray(
+        grid.origin)
+    moved = pf.pos.clone()
+    moved[-n:] = torch.as_tensor(pos, dtype=torch.float32, device=device)
+    return pf._replace(pos=moved), F, Fp
+
+
 def window_kernel_phase(cfg, device, extras=False):
     """The window kernel against its plain version at the main path's
     shapes; `extras` adds the torque and added-mass channels (C_in 16,
@@ -275,14 +297,19 @@ def planes_kernel_phase(cfg, device):
     inv = 1.0 / n_p.where(n_p > 0, 1.0)
     Vn = (V * inv.where(n_p > 0, 0.0)[None]).contiguous()
     dargs = (Vn, D, grid.shape[0], grid, periodic, ccfg, 0)
+    # the bound on occupied slots that the two-kernel planes exchange passes
+    deposit = lambda: cpp.deposit_stacks(*dargs, max_occupied=N_PARTICLES)  # noqa: E731
     plain = cpp.deposit_stacks_reference(*dargs)
-    kern = cpp.deposit_stacks(*dargs)
+    kern = deposit()
     err = check_close("planes_deposit", "stks", kern[0], plain[0])
     # the occupied slots' V, the radius plane and their positions in D
     v_bytes = Vn.shape[0] * n_occ * Vn.element_size()
-    out["planes_deposit"] = (err, *kernel_times(lambda: cpp.deposit_stacks(*dargs)),
+    out["planes_deposit"] = (err, *kernel_times(deposit),
                              cuda_ms(lambda: cpp.deposit_stacks_reference(*dargs), 5),
                              bound(nbytes(kern[0], D[6]) + v_bytes + 3 * n_occ * 4, flops))
+    peak, above = peak_mb(deposit)
+    print(f"kernel planes_deposit: peak device memory of one call {peak:.1f} MB, {above:.1f} MB "
+          "above its inputs", flush=True)
     for name, (err, ms, dev_ms, plain_ms, _) in out.items():
         print(f"kernel {name}: max_abs_err {err:.3e} (within {KERNEL_RTOL:g} of each "
               f"channel's scale); kernel {ms:.4f} ms ({dev_ms:.4f} ms device only), plain "
@@ -294,20 +321,21 @@ def planes_kernel_phase(cfg, device):
 
 def rolls_kernel_phase(device, offsets, C):
     """B3 against its plain version at a path's shapes: a seeded
-    offset-major anchor buffer (S*C, ncells + 1) seen as (S, C, 128^3), as
-    the deposit hands it over (the sparse exchange's cube stencil with
-    C = 4, the point-force exchange's 8 corners with C = 3). Times the
-    kernel, the plain roll loop and one circular Conv3d with one-hot
-    weights w[c, o*C + c, 1 - dx, 1 - dy, 1 - dz] = 1 (TF32 off), which
-    computes the same function and which the port does not use."""
+    offset-major anchor buffer (S*C, anchor_row_length) seen as (S, C,
+    128^3), as the deposit hands it over (the sparse exchange's cube
+    stencil with C = 4, the point-force exchange's 8 corners with C = 3).
+    Times the kernel, the plain roll loop and one circular Conv3d with
+    one-hot weights w[c, o*C + c, 1 - dx, 1 - dy, 1 - dz] = 1 (TF32 off),
+    which computes the same function and which the port does not use."""
     import torch
+    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops import rolls
 
     S = len(offsets)
     shape = (NX,) * 3
     ncells = NX ** 3
     gen = torch.Generator(device=device).manual_seed(3)
-    buf = torch.randn((S * C, ncells + 1), generator=gen, device=device)
+    buf = torch.randn((S * C, cp.anchor_row_length(ncells)), generator=gen, device=device)
     bufT = buf[:, :ncells].view((S, C) + shape)
     plain = rolls.distribute_rolls_reference(bufT, offsets)
     kern = rolls.distribute_rolls(bufT, offsets)
@@ -407,6 +435,51 @@ def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(n_live * 2 * dat.element_size() + nbytes(nch, dyn), n_live),
             "library_ms": library_ms}
+
+
+def capacity_phase(cfg, pcfg, device, card):
+    """B1, B4 and B6 at slot capacities 9 and 16 against their plain
+    versions at 128^3/100k, on the bench lattice with 2,000 particles moved
+    into 100 crowded cells (`crowded_inputs`); the planes kernels get the
+    particle count as their record bound, as the exchanges pass it."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+
+    grid, periodic = cfg.grid, cfg.periodic_axes()
+    nu, rho_f = cfg.transport.nu, cfg.transport.rho_f
+    pf, _, Fp = crowded_inputs(cfg, device, 10)
+    gen = torch.Generator(device=device).manual_seed(6)
+    for cap in CAPACITIES:
+        wcfg = dataclasses.replace(cfg.coupling, slot_capacity=cap)
+        bins = cw.window_bins(pf, grid, cap, cw.window_size(N_PARTICLES, NX, wcfg.planes_window))
+        args = (Fp, bins.dat_win, grid, periodic, wcfg, 0, nu, rho_f)
+        calls = {"window_exchange": (
+            lambda: cw.window_exchange_padded(*args, counts=bins.counts),
+            lambda: cw.window_exchange_padded_reference(*args, counts=bins.counts))}
+        ccfg = dataclasses.replace(pcfg.coupling, slot_capacity=cap)
+        pb = cpp.bin_particles_planes(pf, grid, cap)
+        if int((pb.D[6] > 0).sum(0).max()) != cap or int(pb.n_overflow) == 0:
+            raise AssertionError(f"capacity {cap}: the crowded lattice fills no cell")
+        fargs = (Fp, pb.D, grid, periodic, ccfg, 0, nu, rho_f)
+        calls["planes_fused"] = (
+            lambda: cpp.fused_exchange_padded(*fargs, max_occupied=N_PARTICLES),
+            lambda: cpp.fused_exchange_padded_reference(*fargs))
+        V = 1e-2 * torch.randn((8, cap, grid.ncells), generator=gen, device=device)
+        dargs = (V, pb.D, NX, grid, periodic, ccfg, 0)
+        calls["planes_deposit"] = (
+            lambda: cpp.deposit_stacks(*dargs, max_occupied=N_PARTICLES),
+            lambda: cpp.deposit_stacks_reference(*dargs))
+        for name, (kernel, plain) in calls.items():
+            k, p = kernel(), plain()
+            err = check_close(f"{name} cap {cap}", "stks", k[0], p[0])
+            if name != "planes_deposit":
+                err = max(err, check_close(f"{name} cap {cap}", "pres", k[2], p[2]))
+            del k, p
+            dev_ms = cuda_ms(kernel, 10, device_only=True)
+            print(f"kernel {name}, slot capacity {cap} (crowded lattice, {int(pb.n_overflow)} "
+                  f"over capacity): max_abs_err {err:.3e} (within {KERNEL_RTOL:g} of each "
+                  f"channel's scale); {dev_ms:.4f} ms device only [{card}]", flush=True)
 
 
 def timing_floor(device, card):
@@ -515,31 +588,33 @@ def write_ico_case(d: Path, n=NX, length=1e-3 * NX):
 CLI_SOLVERS = {"pimple": ("pimplefoam", write_cli_case, 2), "piso": ("icofoam", write_ico_case, 1)}
 
 
-def cli_phase(card, solver, steps=20):
+def cli_phase(card, solver, steps=20, extra=(), kernel=None):
     """`pimplefoam <case>` or `icofoam <case>` through the CLI's own `main`
     on the card (its default device): 100k random particles, `steps`
-    steps. The launch counts are set to 0 just before and read just after;
-    B3 must have run at least as often per step as the exchange deposits.
-    -> the launch counts."""
+    steps, with the CLI arguments `extra`. The launch counts are set to 0
+    just before and read just after; B3 must have run at least as often
+    per step as the exchange deposits, or `kernel` (the exchange kernel
+    that `extra` selects) once a step. -> the launch counts."""
     from yade_openfoam_coupling_tpu_torch import cli
 
     cmd, writer, b3_per_step = CLI_SOLVERS[solver]
+    kernel, per_step = (kernel, 1) if kernel else ("rolls_deposit", b3_per_step)
     case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")))
     try:
         reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main([cmd, str(case), *CLI_ARGS, "--max-steps", str(steps)])
+        rc = cli.main([cmd, str(case), *CLI_ARGS, *extra, "--max-steps", str(steps)])
         wall = time.perf_counter() - t0
         launches = read_launches()
     finally:
         shutil.rmtree(case)
     if rc != 0:
-        raise AssertionError(f"{cmd} exited with {rc}")
-    if launches["rolls_deposit"] < b3_per_step * steps:
-        raise AssertionError(f"CLI {cmd}: B3 launched {launches['rolls_deposit']} times in "
-                             f"{steps} steps")
-    print(f"CLI {cmd}, {N_PARTICLES} random particles, {NX}^3: {steps} steps in "
-          f"{wall:.2f} s with set-up [{card}]; launches "
+        raise AssertionError(f"{cmd} {' '.join(extra)} exited with {rc}")
+    if launches[kernel] < per_step * steps:
+        raise AssertionError(f"CLI {cmd} {' '.join(extra)}: {kernel} launched "
+                             f"{launches[kernel]} times in {steps} steps")
+    print(f"CLI {cmd} {' '.join(extra)}, {N_PARTICLES} random particles, {NX}^3: {steps} steps "
+          f"in {wall:.2f} s with set-up [{card}]; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return launches
 
@@ -823,17 +898,17 @@ def main() -> int:
           f"({e['device_ms']:.4f} ms device only), plain {e['plain_ms']:.4f} ms [{smi}]",
           flush=True)
     kern.update(planes_kernel_phase(pcfg, device))
+    capacity_phase(cfg, pcfg, device, smi)
     kern["rolls_deposit"] = rolls_kernel_phase(
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4)
-    corners = rolls_kernel_phase(device, cp.TRILINEAR_CORNERS, 3)
+    kern["rolls_deposit_point_force"] = rolls_kernel_phase(device, cp.TRILINEAR_CORNERS, 3)
     kern["laplacian"] = laplacian_kernel_phase(device)
     proto = dynwin_kernel_phase(device, "prototype", *(
         torch.as_tensor(a, device=device) for a in dw.prototype_inputs()), dw.NY, dw.NZ)
     kern["dynwin_staging"] = dynwin_kernel_phase(device, "window shape",
                                                  *dynwin_main_path_inputs(cfg, device), NX, NX)
     timing_floor(device, smi)
-    for name, e in [("rolls_deposit (S=8, C=3, the point-force deposit)", corners),
-                    ("dynwin_staging (the prototype's shape)", proto), *kern.items()]:
+    for name, e in [("dynwin_staging (the prototype's shape)", proto), *kern.items()]:
         print(f"{name}: kernel {e['ms']:.4f} ms ({e['device_ms']:.4f} ms device only), plain "
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
               f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} "
@@ -853,6 +928,8 @@ def main() -> int:
     launches["planes_interp"] = runs["planes_interp"]
     launches["planes_deposit"] = runs["planes_deposit"]
     cli_phase(smi, "pimple")
+    cli_phase(smi, "pimple", steps=STEPS_PER_RUN, extra=("--fast", "--slot-capacity", "9"),
+              kernel="planes_fused")
     ccfg = cli_config("pimple")
     runs, iters = slice_phase(ccfg, device, smi, "CLI slice", {"rolls_deposit": 2})
     launches["rolls_deposit"] = runs["rolls_deposit"]
@@ -868,7 +945,7 @@ def main() -> int:
     cli_phase(smi, "piso")
     picfg = cli_config("piso")
     runs, iters = slice_phase(picfg, device, smi, "PISO slice", {"rolls_deposit": 1})
-    print(f"PISO slice: B3 (S=8, C=3) launches {runs['rolls_deposit']}", flush=True)
+    launches["rolls_deposit_point_force"] = runs["rolls_deposit"]
     runs, iters_pal = slice_phase(with_use_pallas(picfg), device, smi, "PISO slice, use_pallas",
                                   {"rolls_deposit": 1, "laplacian": 1}, timed_runs=0)
     print(f"PISO slice p_iters per step: {iters.tolist()}; with use_pallas: "
@@ -892,6 +969,8 @@ def main() -> int:
                "planes_interp": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:278"),
                "planes_deposit": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:404"),
                "rolls_deposit": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
+               "rolls_deposit_point_force": ("rolls_deposit.cu",
+                                             JAX_OPS + "pallas_rolls.py:39"),
                "laplacian": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
                "dynwin_staging": ("dynwin_staging.cu", "scripts/proto_dynwin.py:34")}
     entries = []

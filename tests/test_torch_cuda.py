@@ -127,14 +127,6 @@ def test_window_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="Fp"):
         cw.window_exchange_padded(Fp, bins.dat_win, grid, (True, True, False), torque,
                                   0, 1e-6, 1000.0)
-    # one occupancy byte per cell: at most 8 ranks
-    wide = dataclasses.replace(cfg, slot_capacity=9)
-    with pytest.raises(ValueError, match="slot_capacity"):
-        cw.window_exchange_padded(Fp, bins.dat_win, grid, (True, True, False), wide,
-                                  0, 1e-6, 1000.0)
-    D = cpp.bin_particles_planes(pf, grid, 9).D
-    with pytest.raises(ValueError, match="slot_capacity"):
-        cpp.fused_exchange_padded(Fp, D, grid, (True, True, False), wide, 0, 1e-6, 1000.0)
 
 
 def _planes_case(periodic, cfg, device, seed, slab=None):
@@ -333,13 +325,19 @@ def test_planes_fused_kernel_edge_cases(cuda, periodic, extras, slab, bounded):
     assert int(kern[2][-1].sum()) == int(plain[2][-1].sum()) > 0
 
 
+def _seeded_V(cap, ncl, device, seed):
+    """Seeded pre-normalised slot values V (8, cap, ncl) for the deposit."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((8, cap, ncl), generator=gen, device=device) * 1e-2
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("exchange", ["window", "planes"])
+@pytest.mark.parametrize("exchange", ["window", "planes", "deposit"])
 def test_exchange_kernels_crowded_band(cuda, exchange):
     """A plane holding cap = 4 particles in each of 100 of its 400 cells:
     the cells pass's band halo holds more records than its shared memory
-    takes, so it reads them from device memory, and still agrees with the
-    plain version at KERNEL_RTOL."""
+    takes, so it reads them from device memory, and B1, B4 and B6 still
+    agree with their plain versions at KERNEL_RTOL."""
     grid = Grid.box((4, 10, 40), (0.004, 0.010, 0.040))
     rng = np.random.RandomState(81)
     cells = rng.choice(10 * 40, 100, replace=False)
@@ -358,26 +356,33 @@ def test_exchange_kernels_crowded_band(cuda, exchange):
                 cfg, 0, 1e-6, 1000.0)
         plain = cw.window_exchange_padded_reference(*args, counts=bins.counts)
         kern = cw.window_exchange_padded(*args, counts=bins.counts)
-    else:
+    elif exchange == "planes":
         cfg = _planes_cfg(False)
         D = cpp.bin_particles_planes(pf, grid, 4).D
         args = (_fluid_stack(grid, periodic, cfg, cuda, seed=82), D, grid, periodic, cfg, 0,
                 1e-6, 1000.0)
         plain = cpp.fused_exchange_padded_reference(*args)
         kern = cpp.fused_exchange_padded(*args, max_occupied=n)
+    else:
+        cfg = _planes_cfg(False)
+        D = cpp.bin_particles_planes(pf, grid, 4).D
+        args = (_seeded_V(4, grid.ncells, cuda, 83), D, grid.shape[0], grid, periodic, cfg, 0)
+        plain = cpp.deposit_stacks_reference(*args)
+        kern = cpp.deposit_stacks(*args, max_occupied=n)
     torch.cuda.synchronize()
-    assert int(plain[2][-1].sum()) == n == int(kern[2][-1].sum())
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
-    _assert_channels_close(kern[2].reshape(kern[2].shape[0] * 4, -1),
-                           plain[2].reshape(plain[2].shape[0] * 4, -1))
+    if exchange != "deposit":
+        assert int(plain[2][-1].sum()) == n == int(kern[2][-1].sum())
+        _assert_channels_close(kern[2].reshape(kern[2].shape[0] * 4, -1),
+                               plain[2].reshape(plain[2].shape[0] * 4, -1))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("exchange", ["window", "planes"])
+@pytest.mark.parametrize("exchange", ["window", "planes", "deposit"])
 def test_exchange_kernels_are_deterministic(cuda, exchange):
-    """Two launches of B1 or B4 on the same inputs give the same stacks and
-    per-slot results bit for bit (no float atomics; the planes kernel's
-    list of occupied slots may come out in another order)."""
+    """Two launches of B1, B4 or B6 on the same inputs give the same stacks
+    and per-slot results bit for bit (no float atomics; the planes
+    kernels' list of occupied slots may come out in another order)."""
     extras = exchange == "planes"
     periodic = (True, True, False)
     pf = _edge_particles(cuda, seed=71)
@@ -389,7 +394,7 @@ def test_exchange_kernels_are_deterministic(cuda, exchange):
         def run():
             return cw.window_exchange_padded(Fp, bins.dat_win, GRID, periodic, cfg, 0, 1e-6,
                                              1000.0, counts=bins.counts)
-    else:
+    elif exchange == "planes":
         cfg = _planes_cfg(extras)
         D = cpp.bin_particles_planes(pf, GRID, 4, with_angvel=extras).D
         Fp = _fluid_stack(GRID, periodic, cfg, cuda, seed=72)
@@ -397,10 +402,131 @@ def test_exchange_kernels_are_deterministic(cuda, exchange):
         def run():
             return cpp.fused_exchange_padded(Fp, D, GRID, periodic, cfg, 0, 1e-6, 1000.0,
                                              max_occupied=pf.pos.shape[0])
+    else:
+        cfg = _planes_cfg(False)
+        D = cpp.bin_particles_planes(pf, GRID, 4).D
+        V = _seeded_V(4, GRID.ncells, cuda, 73)
+
+        def run():
+            return cpp.deposit_stacks(V, D, GRID.shape[0], GRID, periodic, cfg, 0,
+                                      max_occupied=pf.pos.shape[0])
     first, second = run(), run()
     torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    assert torch.equal(first[0], second[0])
+    if exchange != "deposit":
+        assert torch.equal(first[2], second[2])
     assert float(first[0].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic,slab,bounded", [
+    ((True, True, False), None, True),
+    ((False, False, False), None, False),
+    ((False, False, False), (4, 4), True),
+    ((True, True, True), (8, 4), True),
+])
+def test_planes_deposit_kernel_edge_cases(cuda, periodic, slab, bounded):
+    """B6 (scan, records, cells) against its plain version at KERNEL_RTOL
+    on the edge-case particles (an empty plane, exactly cap and past cap in
+    a cell, the seams and walls), on the whole grid and on slabs at x_off 4
+    and 8, with the records bounded by the particle count or by every
+    slot."""
+    cfg = _planes_cfg(False)
+    pf = _edge_particles(cuda, seed=63)
+    kw, x0, nxl = {}, 0, GRID.shape[0]
+    if slab is not None:
+        x0, nxl = slab
+        kw = dict(x_start=x0, n_loc=nxl)
+    D = cpp.bin_particles_planes(pf, GRID, 4, **kw).D
+    ncl = nxl * GRID.shape[1] * GRID.shape[2]
+    args = (_seeded_V(4, ncl, cuda, 64), D, nxl, GRID, periodic, cfg, x0)
+    plain = cpp.deposit_stacks_reference(*args)
+    before = cpp.deposit_stacks.launches
+    kern = cpp.deposit_stacks(*args, max_occupied=pf.pos.shape[0] if bounded else None)
+    torch.cuda.synchronize()
+    assert cpp.deposit_stacks.launches == before + 1
+    assert kern[1] == plain[1]
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+
+
+# crowded cells (cell, particles) on GRID: ranks past 8, past 16, past 32
+CROWDS = (((3, 4, 5), 12), ((6, 2, 7), 17), ((9, 7, 13), 40), ((0, 0, 0), 10))
+
+
+def _crowded_particles(device, seed):
+    """A uniform bulk of 150 on GRID plus CROWDS, the first particle of the
+    first crowd with radius 0 (an empty slot at rank 0 below occupied
+    ranks), the last crowd in the corner cell against the seams."""
+    rng = np.random.RandomState(seed)
+    h, L = np.asarray(GRID.spacing), np.asarray(GRID.lengths)
+    parts = [rng.uniform(0.08 * L, 0.92 * L, (150, 3))]
+    starts = []
+    for cell, k in CROWDS:
+        starts.append(sum(len(p) for p in parts))
+        parts.append((np.asarray(cell) + rng.uniform(0.05, 0.95, (k, 3))) * h)
+    pos = np.concatenate(parts)
+    n = len(pos)
+    radius = 4e-4 * (1.0 + 0.2 * rng.rand(n))
+    radius[starts[0]] = 0.0
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return cp.ParticleFields(t(pos), t(rng.randn(n, 3) * 1e-3), t(rng.randn(n, 3) * 1e-2),
+                             t(radius), torch.ones(n, dtype=torch.bool, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [9, 16, 33])
+@pytest.mark.parametrize("kernel", ["window", "planes", "deposit"])
+def test_exchange_kernels_past_eight_slots(cuda, kernel, cap):
+    """B1, B4 and B6 take any slot capacity: at cap 9, 16 and 33, on a
+    cloud whose crowds fill ranks past 8 and past 32 (and overflow), with
+    an empty slot below occupied ranks, they agree with their plain
+    versions at KERNEL_RTOL; the planes kernels get the exact number of
+    occupied slots as their record bound."""
+    periodic = (True, True, False)
+    pf = _crowded_particles(cuda, seed=91)
+    if kernel == "window":
+        cfg = dataclasses.replace(_window_cfg(False), slot_capacity=cap)
+        bins = cw.window_bins(pf, GRID, cap, 512)
+        assert int(bins.rank.max()) >= 39 and int(bins.keep.sum()) > 0
+        args = (_fluid_stack(GRID, periodic, cfg, cuda, seed=92), bins.dat_win, GRID, periodic,
+                cfg, 0, 1e-6, 1000.0)
+        plain = cw.window_exchange_padded_reference(*args, counts=bins.counts)
+        kern = cw.window_exchange_padded(*args, counts=bins.counts)
+    else:
+        cfg = dataclasses.replace(_planes_cfg(False), slot_capacity=cap)
+        bins = cpp.bin_particles_planes(pf, GRID, cap)
+        occupied = int((bins.D[6] > 0).sum())
+        assert int((bins.D[6] > 0).sum(0).max()) == cap and int(bins.n_overflow) > 0
+        if kernel == "planes":
+            args = (_fluid_stack(GRID, periodic, cfg, cuda, seed=92), bins.D, GRID, periodic,
+                    cfg, 0, 1e-6, 1000.0)
+            plain = cpp.fused_exchange_padded_reference(*args)
+            kern = cpp.fused_exchange_padded(*args, max_occupied=int(bins.keep.sum()))
+        else:
+            args = (_seeded_V(cap, GRID.ncells, cuda, 93), bins.D, GRID.shape[0], GRID,
+                    periodic, cfg, 0)
+            plain = cpp.deposit_stacks_reference(*args)
+            kern = cpp.deposit_stacks(*args, max_occupied=int(bins.keep.sum()))
+        assert int(bins.keep.sum()) == occupied + 1      # the radius-0 slot
+    torch.cuda.synchronize()
+    assert kern[1] == plain[1]
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+    if kernel != "deposit":
+        assert kern[2].shape[1] == cap
+        _assert_channels_close(kern[2].reshape(kern[2].shape[0] * cap, -1),
+                               plain[2].reshape(plain[2].shape[0] * cap, -1))
+        assert int(kern[2][-1].sum()) == int(plain[2][-1].sum()) > 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["window_exchange", "planes_exchange"])
+def test_scratch_layout_matches_the_library(cuda, lib):
+    """The scratch layout that `carve` (csrc/exchange_common.cuh) uses equals
+    `_scratch_layout` at sizes past 8 and 32 slots a cell."""
+    for ncl, cap in ((7, 1), (210, 9), (1000, 16), (12 ** 3, 33), (128 ** 3, 4)):
+        for n_rec in (0, 3, cap * ncl):
+            assert cpp.library_scratch_layout(lib, ncl, n_rec) == \
+                cpp._scratch_layout(ncl, n_rec)
 
 
 ASYMMETRIC = np.array([[1, 0, 0], [0, -1, 1], [-1, 1, -1], [0, 0, 1], [1, -1, 0]])
@@ -434,6 +560,44 @@ def test_rolls_kernel_matches_plain(cuda, offsets, C):
     assert torch.equal(kern, plain)
     with pytest.raises(ValueError, match="strided"):
         rolls.distribute_rolls(bufT.transpose(3, 4), offsets)
+
+
+ROLL_SETS = {
+    "cube (27, 4)": (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4),
+    "sphere2 (19, 4)": (cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")), 4),
+    "corners (8, 3)": (cp.TRILINEAR_CORNERS, 3),
+    "one tap (1, 1)": (np.array([[1, -1, 1]]), 1),
+    "wide dz (5, 2)": (np.array([[0, 0, 2], [1, 0, -3], [0, 1, 4], [-1, -1, -4], [0, 0, -1]]),
+                       2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ROLL_SETS))
+@pytest.mark.parametrize("nz,row", [(16, "padded"), (16, "scrap"), (14, "padded"),
+                                    (14, "scrap")])
+def test_rolls_kernel_layouts(cuda, name, nz, row):
+    """B3 bit for bit against the plain roll loop at the tap counts the
+    paths use (27, 19, 8) and at 1 and 5, on the deposit's anchor buffer
+    with rows padded to 32 floats (vector loads where nz is a multiple of
+    4) and with the old ncells + 1 rows (scalar loads), for nz a multiple
+    of 4 and not; every row's z seam is crossed by the dz = +-1 taps, and
+    dz = 2, -3, 4, -4 take the other load paths."""
+    offsets, C = ROLL_SETS[name]
+    S, shape = len(offsets), (12, 10, nz)
+    ncells = int(np.prod(shape))
+    width = cp.anchor_row_length(ncells) if row == "padded" else ncells + 1
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    buf = torch.randn((S * C, width), generator=gen, device=cuda)
+    bufT = buf[:, :ncells].view((S, C) + shape)
+    # one plane alone has no stride to read
+    assert rolls._plane_stride(bufT, offsets) == (width if S * C > 1 else ncells)
+    plain = rolls.distribute_rolls_reference(bufT, offsets)
+    before = rolls.distribute_rolls.launches
+    kern = rolls.distribute_rolls(bufT, offsets)
+    torch.cuda.synchronize()
+    assert rolls.distribute_rolls.launches == before + 1
+    assert torch.equal(kern, plain)
 
 
 @pytest.mark.cuda

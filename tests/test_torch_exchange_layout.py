@@ -1,7 +1,9 @@
-"""Host side of the fused exchange kernels B1 and B4, on the CPU: the
-scratch layout they are handed, their parameter arrays, the capacity they
-take, and the wrappers' CPU path (the plain version, whatever the record
+"""Host side of the fused exchange kernels B1, B4 and B6, on the CPU: the
+scratch layout they are handed (for any slot capacity), their parameter
+arrays, and the wrappers' CPU path (the plain version, whatever the record
 bound)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,16 +32,23 @@ def _particles(n, seed):
                              torch.ones(n, dtype=torch.bool))
 
 
-@pytest.mark.parametrize("ncl,cap,n_rec", [(210, 4, 60), (5, 1, 0), (7, 8, 3),
-                                           (128 ** 3, 4, 100_000)])
-def test_scratch_segments_fit_and_records_align(ncl, cap, n_rec):
-    """The occupancy bytes, the per-slot record indices and the list of
-    occupied slots fit before the records, which start on 16 bytes and
-    take n_rec records of the kernels' 24 floats."""
-    words = cpp._scratch_words(ncl, cap, n_rec)
-    head = words - cpp._REC_FLOATS * n_rec
-    assert head % 4 == 0 and cpp._REC_FLOATS % 4 == 0
-    assert head >= -(-ncl // 4) + cap * ncl + 1 + n_rec
+@pytest.mark.parametrize("ncl,cap,max_occupied", [
+    (210, 4, 60), (5, 1, 0), (7, 8, 3), (128 ** 3, 4, 100_000),
+    (210, 9, None), (1000, 16, 5000), (12 ** 3, 33, None)])
+def test_scratch_segments_fit_and_records_align(ncl, cap, max_occupied):
+    """The per-cell record counts and bases and the list of slots fit, in
+    that order, before the records, which start on 16 bytes and take
+    n_rec records of the kernels' 24 floats; n_rec is the bound on
+    occupied slots, at most (and by default) every slot. Nothing but n_rec
+    grows with the slot capacity, so caps past 8 (one byte of rank bits)
+    and past 32 (one word) lay out the same way."""
+    n_rec = cpp._record_count(cap, ncl, max_occupied)
+    assert n_rec == (cap * ncl if max_occupied is None else min(max_occupied, cap * ncl))
+    cnt, base, lst, rec, words = cpp._scratch_layout(ncl, n_rec)
+    assert cnt == 0 and base >= ncl and lst - base >= ncl and rec - lst >= 1 + n_rec
+    assert all(off % 4 == 0 for off in (base, lst, rec)) and cpp._REC_FLOATS % 4 == 0
+    assert words == rec + cpp._REC_FLOATS * n_rec == cpp._scratch_words(ncl, n_rec)
+    assert cpp._scratch_layout(ncl, n_rec)[:4] == cpp._scratch_layout(ncl, 0)[:3] + (rec,)
 
 
 def test_kernel_params_are_built_once_and_read_only():
@@ -58,16 +67,6 @@ def test_kernel_params_are_built_once_and_read_only():
     assert ip[cpp._IPARAMS.index("n_off")] == len(offsets)
     n = len(cpp._IPARAMS)
     np.testing.assert_array_equal(ip[n:n + 3 * len(offsets)], np.asarray(offsets).reshape(-1))
-
-
-@pytest.mark.parametrize("cap,ok", [(0, False), (1, True), (8, True), (9, False)])
-def test_capacity_the_kernels_take(cap, ok):
-    """One occupancy byte per cell holds ranks 0..7: 1 <= cap <= 8."""
-    if ok:
-        cpp._check_cap("kernel", cap)
-    else:
-        with pytest.raises(ValueError, match="slot_capacity"):
-            cpp._check_cap("kernel", cap)
 
 
 def test_cpu_wrappers_run_the_plain_versions():
@@ -91,3 +90,22 @@ def test_cpu_wrappers_run_the_plain_versions():
     out = cw.window_exchange_padded(*wargs, counts=bins.counts)
     assert torch.equal(out[0], plain[0]) and torch.equal(out[2], plain[2])
     assert int(out[2][-1].sum()) == 80
+
+
+@pytest.mark.parametrize("cap", [4, 9])
+def test_cpu_deposit_wrapper_runs_the_plain_version(cap):
+    """On CPU tensors the deposit wrapper (B6) returns its plain version bit
+    for bit, with the record bound or without, also past 8 slots a cell
+    (a crowded cell holds 12 particles)."""
+    pf = _particles(80, seed=7)
+    pf = pf._replace(pos=torch.cat([pf.pos[:68], pf.pos[:1].expand(12, 3) * 1.0001]))
+    cfg = dataclasses.replace(_cfg("planes"), slot_capacity=cap)
+    D = cpp.bin_particles_planes(pf, GRID, cap).D
+    assert int((D[6] > 0).sum(0).max()) == min(cap, 13)
+    V = torch.as_tensor(np.random.RandomState(8).randn(8, cap, GRID.ncells).astype(np.float32))
+    args = (V, D, GRID.shape[0], GRID, PERIODIC, cfg, 0)
+    plain = cpp.deposit_stacks_reference(*args)
+    for kw in ({}, {"max_occupied": 80}):
+        out = cpp.deposit_stacks(*args, **kw)
+        assert out[1] == plain[1] and torch.equal(out[0], plain[0])
+    assert cpp.deposit_stacks.launches == 0

@@ -6,6 +6,8 @@ PIMPLE, and `solve_pressure(solid=...)` with and without `use_pallas` (the
 port's plain stencil on the CPU against the Pallas kernel in interpret
 mode). Tolerance: 1e-5 of each field's scale, equal CG iteration counts."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -196,3 +198,45 @@ def test_solve_pressure_solid_matches(use_pallas):
     _close("x", out.x, ref.x, 1e-5)
     assert float((out.x * tm.solid).abs().max()) == 0.0
     assert abs(float(out.x.sum())) <= 1e-5 * float(out.x.abs().sum())
+
+
+def test_coupled_steps_build_the_obstacle_masks_once(monkeypatch):
+    """A multi-step coupled PISO run with a box obstacle (the point-force
+    sedimentation cloud, 12^3) builds its masks once, in initialize_state,
+    and every step reuses them; the state after 3 steps equals, bit for
+    bit, that of a run that rebuilds the masks at every use, as the port
+    did before. A config with another solid array starts with no masks."""
+    from yade_openfoam_coupling_tpu_torch import cases as tcases
+    from yade_openfoam_coupling_tpu_torch.models import coupled as tcd
+    from yade_openfoam_coupling_tpu_torch.models.fields import (
+        make_fluid_state, make_particle_state, make_turbulence_state)
+
+    base, state0, dt = tcases.sedimentation_cloud(n_particles=60, n=12, device=CPU)
+    pos = state0.particles.pos[:60].numpy().copy()
+    pos[:, 2] = np.maximum(pos[:, 2], 0.011)      # above the block
+
+    def run(cfg):
+        state = tcd.initialize_state(
+            make_fluid_state(cfg.grid, CPU),
+            make_particle_state(pos, CPU, radius=150e-6, capacity=64),
+            make_turbulence_state(cfg.grid, CPU), cfg, dt=dt)
+        return tcd.make_scan_fn(cfg, 3)(state)
+
+    built = []
+    real = tob.build_masks
+    monkeypatch.setattr(tob, "build_masks", lambda *a: built.append(1) or real(*a))
+    cfg = dataclasses.replace(base, solid=tob.box_solid(base.grid.shape, (3, 3, 1), (9, 9, 4)))
+    cached, diags = run(cfg)
+    assert len(built) == 1 and int(diags.n_found[-1]) == 60
+    other = dataclasses.replace(cfg, solid=tob.box_solid(base.grid.shape, (2, 2, 1), (5, 5, 3)))
+    assert other.obstacle_masks(CPU).n_solid == 3 * 3 * 2 and len(built) == 2
+
+    monkeypatch.setattr(tcd.CaseConfig, "obstacle_masks", lambda self, device: real(
+        self.solid, self.bcs.periodic_axes(), device))
+    fresh, _ = run(dataclasses.replace(cfg))
+    for name in ("u", "p", "u_source"):
+        assert torch.equal(getattr(cached.fluid, name), getattr(fresh.fluid, name)), name
+    for a in range(3):
+        assert torch.equal(cached.fluid.phi[a], fresh.fluid.phi[a])
+    assert torch.equal(cached.particles.pos, fresh.particles.pos)
+    assert float(cached.fluid.u.abs().max()) > 0.0

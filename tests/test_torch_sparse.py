@@ -174,3 +174,41 @@ def test_roll_distribution_size_rule(monkeypatch):
         res = tcp.gaussian_coupling(pf, u, u, u, u, u, grid, PERIODIC, 1e-6, 1000.0, 5e-5, cfg)
         assert len(seen) == expect and all(s == shape for s in seen)
         assert float(res.alpha.min()) < 1.0
+
+
+@pytest.mark.parametrize("support", ["sparse", "point_force"])
+def test_anchor_rolls_padded_rows_match_jax(monkeypatch, support):
+    """`_deposit_anchor_rolls` scatters into rows padded to 32 floats
+    (column ncells stays the scrap bin), so every plane the roll
+    distribution reads starts 128-byte aligned; the deposit still equals
+    the JAX package's, for the sparse exchange's sphere2 support (C = 4)
+    and the point-force exchange's trilinear corners (C = 3)."""
+    pf, _, _ = _inputs(n=200, seed=6)
+    pos, active = pf[0], pf[4]
+    pos[:5] = -1.0                                   # outside: the scrap bin
+    if support == "sparse":
+        cfg = jcp.CouplingConfig(gaussian=True, stencil_shape="sphere2")
+        offsets = jcp.stencil_offsets(cfg)
+        ref_sup = jcp.gaussian_support(jnp.asarray(pos), jnp.asarray(active), GRID, PERIODIC,
+                                       cfg)
+        sup = tcp.gaussian_support(torch.as_tensor(pos), torch.as_tensor(active),
+                                   config_from(GRID), PERIODIC, config_from(cfg))
+        C = 4
+    else:
+        offsets = tcp.TRILINEAR_CORNERS
+        ref_sup = jcp.trilinear_weights(jnp.asarray(pos), GRID, PERIODIC, jnp.asarray(active))
+        sup = tcp.trilinear_weights(torch.as_tensor(pos), config_from(GRID), PERIODIC,
+                                    torch.as_tensor(active))
+        C = 3
+    np.testing.assert_array_equal(sup.base_flat.numpy(), np.asarray(ref_sup.base_flat))
+    values = np.random.RandomState(7).randn(200, len(offsets), C).astype(np.float32)
+    ref = jcp._deposit_anchor_rolls(jnp.asarray(values), ref_sup, GRID, offsets)
+    strides = []
+    real = rolls.distribute_rolls
+    monkeypatch.setattr(rolls, "distribute_rolls",
+                        lambda b, o: strides.append(rolls._plane_stride(b, o)) or real(b, o))
+    out = tcp._deposit_anchor_rolls(torch.as_tensor(values), sup, config_from(GRID), offsets)
+    ncells = GRID.ncells
+    assert strides == [tcp.anchor_row_length(ncells)] and strides[0] % 32 == 0
+    assert ncells + 1 <= strides[0] < ncells + 33
+    _close("deposit", out.numpy(), ref, 1e-5)

@@ -22,20 +22,21 @@
 //         kernel for an occupied slot): interpolation and force laws into
 //         a compact record of kRec floats (the 8 pre-normalised deposit
 //         values, the 9 separable factors and the slot's n_pres results),
-//         ~10 MB at 100k particles, so it stays in L2. A per-cell
-//         occupancy byte (bit k: rank k holds a particle, so cap <= 8) and
-//         a per-slot record index, written only for occupied slots, say
-//         where the records are;
+//         ~10 MB at 100k particles, so it stays in L2. The records of one
+//         cell are contiguous, rank 0 first: a per-cell count of records
+//         (its ranks 0..cnt-1; an empty slot below an occupied rank gets a
+//         zero record) and the record index of its rank 0 say where they
+//         are, for any slot capacity;
 //       - the cells pass (`cells_kernel`): one block per band of rows of
-//         one plane stages the band's and its +-1-row halo's occupancy
-//         bytes and records in shared memory; then one thread per cell
+//         one plane stages the band's and its +-1-row halo's record
+//         counts and records in shared memory; then one thread per cell
 //         gathers the records of the occupied source slots of its <= 19
 //         stencil offsets (weights = products of stored factors, no exp
 //         recomputed), writes all 3 dx stacks x 8 channels of its cell
-//         and its cap pres slots (the record's results, or zeros) once,
-//         coalesced, so nothing needs a memset. No atomics on floats: the
-//         sums run per offset in stencil order, ranks ascending, as the
-//         plain version orders them.
+//         and, where asked, its cap pres slots (the record's results, or
+//         zeros) once, coalesced, so nothing needs a memset. No atomics on
+//         floats: the sums run per offset in stencil order, ranks
+//         ascending, as the plain version orders them.
 // Channel counts are template parameters chosen from (torque, added mass);
 // the host passes the counts too and the launchers check that they agree.
 // Every kernel follows the plain PyTorch version's operation order and is
@@ -53,7 +54,6 @@ constexpr int kMaxOff = 27;
 constexpr int kCout = 8;    // deposit channels
 constexpr int kStacks = 3;  // one deposit stack per dx in {-1, 0, 1}
 constexpr int kThreads = 256;
-constexpr int kMaxCap = 8;  // ranks one occupancy byte can hold
 // record: deposit values (0:8), fx (8:11), fy (11:14), fz (14:17), the
 // per-slot results (17:17+n_pres, n_pres <= 7); 6 x 16 bytes
 constexpr int kRec = 24;
@@ -170,38 +170,47 @@ __device__ __forceinline__ int block_exclusive_scan(int n, int* s_warp, int* s_t
 
 // Scratch of the fused exchanges, carved from one buffer of 4-byte words,
 // each segment rounded up to 4 words (16 bytes). Mirrored in
-// ops/coupling_planes.py::_scratch_words.
-//   occ: ceil(ncell / 4) words, one occupancy byte per cell;
-//   idx: cap * ncell, the record index of each occupied slot (the other
-//        entries are never written or read);
-//   lst: 1 + n_rec, the number of occupied slots, then their slot indices
-//        (planes only);
-//   rec: kRec * n_rec floats.
+// ops/coupling_planes.py::_scratch_layout.
+//   cnt:  ncell, the records of each cell (its ranks 0..cnt-1);
+//   base: ncell, the record index of each cell's rank 0 (read only where
+//         cnt > 0);
+//   lst:  1 + n_rec, the number of listed slots, then their slot indices
+//         (planes only);
+//   rec:  kRec * n_rec floats.
 struct Scratch {
-  unsigned int* occ;
-  int* idx;
+  int* cnt;
+  int* base;
   int* lst;
   float* rec;
 };
 
 inline long long round4(long long n) { return (n + 3) / 4 * 4; }
 
-inline long long occ_words(const Params& P) { return round4((P.ncell + 3) / 4); }
+// Word offsets of the segments cnt, base, lst, rec, and the total words.
+inline void scratch_layout(long long ncell, long long n_rec, long long* off) {
+  off[0] = 0;
+  off[1] = off[0] + round4(ncell);
+  off[2] = off[1] + round4(ncell);
+  off[3] = off[2] + round4(1 + n_rec);
+  off[4] = off[3] + kRec * n_rec;
+}
 
-inline Scratch carve(const Params& P, int* base) {
+inline Scratch carve(const Params& P, int* words) {
+  long long off[5];
+  scratch_layout(P.ncell, P.n_rec, off);
   Scratch S;
-  S.occ = reinterpret_cast<unsigned int*>(base);
-  S.idx = base + occ_words(P);
-  S.lst = S.idx + round4((long long)P.cap * P.ncell);
-  S.rec = reinterpret_cast<float*>(S.lst + round4(1 + (long long)P.n_rec));
+  S.cnt = words + off[0];
+  S.base = words + off[1];
+  S.lst = words + off[2];
+  S.rec = reinterpret_cast<float*>(words + off[3]);
   return S;
 }
 
-// What the fused exchanges take beyond counts_agree: an occupancy byte per
-// cell, slot and record indices that fit an int, and a stencil in
-// {-1, 0, 1}^3 (so every offset sits in its dx group).
+// What the fused exchanges take beyond counts_agree: slot and record
+// indices that fit an int, and a stencil in {-1, 0, 1}^3 (so every offset
+// sits in its dx group). Any slot capacity >= 1.
 inline bool fused_sizes_ok(const Params& P) {
-  if (P.cap < 1 || P.cap > kMaxCap || P.n_rec < 0 || P.n_off <= 0 || P.n_off > kMaxOff
+  if (P.cap < 1 || P.n_rec < 0 || P.n_off <= 0 || P.n_off > kMaxOff
       || (long long)P.cap * P.ncell >= (1LL << 31))
     return false;
   for (int o = 0; o < P.n_off; ++o)
@@ -371,6 +380,15 @@ __device__ __forceinline__ void exchange_slot(const Params& P, const float* __re
   r4[5] = make_float4(res[3], res[4], res[5], res[6]);
 }
 
+// The record of an empty slot below an occupied rank of its cell: zero
+// values, factors and results, so it adds nothing and its pres slot reads
+// zeros, as the plain version gives an empty slot.
+__device__ __forceinline__ void zero_record(float* __restrict__ rec) {
+  float4* r4 = reinterpret_cast<float4*>(rec);
+#pragma unroll
+  for (int q = 0; q < kRec4; ++q) r4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
 // Rows of the cells pass's bands for a plane of ny x nz cells: about
 // kHaloCells staged cells a block, between 1 and kBandRows rows.
 __host__ __device__ inline int band_rows(const Params& P) {
@@ -378,10 +396,24 @@ __host__ __device__ inline int band_rows(const Params& P) {
   return r < 1 ? 1 : (r > kBandRows ? kBandRows : r);
 }
 
-// Dynamic shared memory of the cells pass: a record base (int) and an
-// occupancy byte for each staged cell.
+// Dynamic shared memory of the cells pass: each staged cell's record
+// count and the position of its first record among the halo's records.
 inline size_t cells_smem(const Params& P) {
-  return (size_t)(band_rows(P) + 2) * P.nz * (sizeof(int) + 1);
+  return (size_t)(band_rows(P) + 2) * P.nz * 2 * sizeof(int);
+}
+
+// The record count of cell c, clamped to what the scratch can hold (no
+// branch on the loaded value, so a thread's loads of several cells are in
+// flight together).
+__device__ __forceinline__ int cell_count(const Params& P, const Scratch& S, long long c) {
+  return min(max(__ldg(S.cnt + c), 0), min(P.cap, P.n_rec));
+}
+
+// The index of the first of cell c's k records, clamped so that all k lie
+// in the scratch whatever a caller's layout says.
+__device__ __forceinline__ int cell_base(const Params& P, const Scratch& S, long long c,
+                                         int k) {
+  return max(0, min(__ldg(S.base + c), P.n_rec - k));
 }
 
 // The staged cell h of a cells block: the device-memory cell of row
@@ -395,23 +427,21 @@ __device__ __forceinline__ long long staged_cell(const Params& P, long long plan
 }
 
 // One cell (row ty of the band, column z) of the cells pass: its 3 x 8
-// stack values and its cap pres slots. STAGED: the halo's records are in
-// shared memory (s_rec, from s_base), else in device memory through idx.
-// The offset loops are unrolled over the dx groups, so the stencil is read
-// from the kernel's parameters at fixed places.
+// stack values and, when pres is given, its cap pres slots. Staged cell h
+// has s_cnt[h] records, ranks ascending: in shared memory from position
+// s_pos[h] (STAGED, s_rec), else in device memory from the cell's base
+// index. The offset loops are unrolled over the dx groups, so the stencil
+// is read from the kernel's parameters at fixed places.
 template <bool STAGED>
 __device__ __forceinline__ void cells_one(const Params& P, long long plane, int y0, int ty,
-                                          int z, const unsigned char* s_occ,
-                                          const int* s_base, const float4* s_rec,
-                                          const int* __restrict__ idx,
-                                          const float* __restrict__ rec,
+                                          int z, const int* s_cnt, const int* s_pos,
+                                          const float4* s_rec, const Scratch& S,
                                           float* __restrict__ stks, float* __restrict__ pres) {
   const int nz = P.nz;
   const long long cell = plane + (long long)(y0 + ty) * nz + z;
-  auto record = [&](int h, int k, int m) -> const float* {
-    if (STAGED) return reinterpret_cast<const float*>(s_rec + (s_base[h] + m) * kRec4);
-    return rec + (long long)__ldg(idx + (long long)k * P.ncell + staged_cell(P, plane, y0, h))
-                     * kRec;
+  auto first = [&](int h, int n) -> const float* {   // the first record of staged cell h
+    if (STAGED) return reinterpret_cast<const float*>(s_rec + s_pos[h] * kRec4);
+    return S.rec + (long long)cell_base(P, S, staged_cell(P, plane, y0, h), n) * kRec;
   };
 #pragma unroll
   for (int ci = 0; ci < kStacks; ++ci) {   // the stack of dx = ci - 1
@@ -426,15 +456,17 @@ __device__ __forceinline__ void cells_one(const Params& P, long long plane, int 
       zs += zs < 0 ? nz : 0;
       zs -= zs >= nz ? nz : 0;
       const int h = (ty + 1 - dy) * nz + zs;
-      unsigned int bits = s_occ[h];
-      if (!bits) continue;
+      const int n = s_cnt[h];
+      if (!n) continue;
       float contrib[kCout];
 #pragma unroll
       for (int c = 0; c < kCout; ++c) contrib[c] = 0.0f;
-      for (int m = 0; bits; ++m) {          // the occupied ranks, ascending
-        const int k = __ffs(bits) - 1;
-        bits &= bits - 1;
-        const float* r = record(h, k, m);
+      const float* r = first(h, n);
+      // the ranks, ascending; rolled: unrolling it in each of the 19
+      // unrolled offsets doubles the kernel's code, whose instruction
+      // fetches then cost more than the loop (measured on an H100)
+#pragma unroll 1
+      for (int m = 0; m < n; ++m, r += kRec) {
         const float w = r[kRecFx + ci] * r[kRecFy + dy + 1] * r[kRecFz + dz + 1];
 #pragma unroll
         for (int c = 0; c < kCout; ++c) contrib[c] = contrib[c] + w * r[c];
@@ -445,29 +477,31 @@ __device__ __forceinline__ void cells_one(const Params& P, long long plane, int 
 #pragma unroll
     for (int c = 0; c < kCout; ++c) stks[((long long)ci * kCout + c) * P.ncell + cell] = acc[c];
   }
+  if (pres == nullptr) return;
   const int h = (ty + 1) * nz + z;
-  const unsigned int own = s_occ[h];
+  const int n = s_cnt[h];
+  const float* r = n ? first(h, n) : nullptr;
   const long long n_slot = (long long)P.cap * P.ncell;
-  for (int k = 0, m = 0; k < P.cap; ++k) {
-    const float* r = ((own >> k) & 1u) ? record(h, k, m++) : nullptr;
+  for (int k = 0; k < P.cap; ++k) {
     for (int c = 0; c < P.n_pres; ++c)
-      pres[c * n_slot + (long long)k * P.ncell + cell] = r ? r[kRecPres + c] : 0.0f;
+      pres[c * n_slot + (long long)k * P.ncell + cell] = k < n ? r[k * kRec + kRecPres + c]
+                                                              : 0.0f;
   }
 }
 
 // The cells pass. Block b covers plane i = b / bands, output rows y0 ..
-// y0 + rows - 1 (a band), all nz columns; it stages the occupancy bytes of
+// y0 + rows - 1 (a band), all nz columns; it stages the record counts of
 // rows y0 - 1 .. y0 + rows (wrapped, the sources of the band's dy shifts)
 // and, where they fit, their records, in ascending (cell, rank) order.
 // Then one thread per cell (i, y, z):
 //   stks[dx][c, i, y, z] = sum over the offsets o with that dx, in stencil
-//   order, of the sum over the occupied ranks of the source cell (i,
-//   y - dy, z - dz) (wrapped), ascending, of w * V[c], with w the product
-//   fx[dx] * fy[dy] * fz[dz] of the source's stored factors;
-// and pres of the cell's cap slots: the record's results, or zeros.
-__global__ void cells_kernel(Params P, const unsigned char* __restrict__ occ,
-                             const int* __restrict__ idx, const float* __restrict__ rec,
-                             float* __restrict__ stks, float* __restrict__ pres) {
+//   order, of the sum over the ranks of the source cell (i, y - dy, z - dz)
+//   (wrapped), ascending, of w * V[c], with w the product fx[dx] * fy[dy]
+//   * fz[dz] of the source's stored factors;
+// and, unless pres is null, pres of the cell's cap slots: the record's
+// results, or zeros.
+__global__ void cells_kernel(Params P, Scratch S, float* __restrict__ stks,
+                             float* __restrict__ pres) {
   extern __shared__ int s_dyn[];
   __shared__ float4 s_rec[kSmemRecs * kRec4];
   __shared__ int s_warp[kThreads / 32];
@@ -479,61 +513,70 @@ __global__ void cells_kernel(Params P, const unsigned char* __restrict__ occ,
   const int y0 = (blockIdx.x % bands) * band;
   const int rows = min(band, P.ny - y0);
   const int n_halo = (rows + 2) * nz;
-  int* s_base = s_dyn;
-  unsigned char* s_occ = reinterpret_cast<unsigned char*>(s_dyn + (band + 2) * nz);
   const long long plane = (long long)i * P.ny * nz;
+  int* s_cnt = s_dyn;
+  int* s_pos = s_dyn + (band + 2) * nz;
 
-  // stage: each thread a run of consecutive cells, record bases by a scan
+  // stage: the halo's record counts, coalesced; then each thread a run of
+  // consecutive cells, record positions by a scan of the counts (a cell's
+  // records are contiguous in device memory)
+#pragma unroll 4
+  for (int h = threadIdx.x; h < n_halo; h += kThreads)
+    s_cnt[h] = cell_count(P, S, staged_cell(P, plane, y0, h));
+  __syncthreads();
   const int per = (n_halo + kThreads - 1) / kThreads;
   const int h0 = min((int)threadIdx.x * per, n_halo), h1 = min(h0 + per, n_halo);
   int n = 0;
-  for (int h = h0; h < h1; ++h) {
-    const unsigned int b = __ldg(occ + staged_cell(P, plane, y0, h));
-    s_occ[h] = (unsigned char)b;
-    n += __popc(b);
-  }
+  for (int h = h0; h < h1; ++h) n += s_cnt[h];
   int p = block_exclusive_scan(n, s_warp, &s_total);
   const bool staged = s_total <= kSmemRecs;
+  const float4* rec4 = reinterpret_cast<const float4*>(S.rec);
   for (int h = h0; h < h1; ++h) {
-    s_base[h] = p;
-    unsigned int b = s_occ[h];
-    if (!staged) continue;
-    const long long src = staged_cell(P, plane, y0, h);
-    while (b) {
-      const int k = __ffs(b) - 1;
-      b &= b - 1;
-      const float4* g = reinterpret_cast<const float4*>(
-          rec + (long long)__ldg(idx + (long long)k * P.ncell + src) * kRec);
+    s_pos[h] = p;
+    const int k = s_cnt[h];
+    if (staged && k) {
+      const float4* g = rec4 + (long long)cell_base(P, S, staged_cell(P, plane, y0, h), k)
+                               * kRec4;
+#pragma unroll 1
+      for (int m = 0; m < k; ++m) {
 #pragma unroll
-      for (int q = 0; q < kRec4; ++q) s_rec[p * kRec4 + q] = __ldg(g + q);
-      ++p;
+        for (int q = 0; q < kRec4; ++q) s_rec[(p + m) * kRec4 + q] = __ldg(g + m * kRec4 + q);
+      }
     }
+    p += k;
   }
   __syncthreads();
 
   for (int t = threadIdx.x; t < rows * nz; t += kThreads) {
     if (staged)
-      cells_one<true>(P, plane, y0, t / nz, t % nz, s_occ, s_base, s_rec, idx, rec, stks, pres);
+      cells_one<true>(P, plane, y0, t / nz, t % nz, s_cnt, s_pos, s_rec, S, stks, pres);
     else
-      cells_one<false>(P, plane, y0, t / nz, t % nz, s_occ, s_base, s_rec, idx, rec, stks, pres);
+      cells_one<false>(P, plane, y0, t / nz, t % nz, s_cnt, s_pos, s_rec, S, stks, pres);
   }
 }
 
 inline cudaError_t launch_cells(const Params& P, const Scratch& S, float* stks, float* pres,
                                 cudaStream_t st) {
   const size_t smem = cells_smem(P);
-  if (smem > 48 * 1024) {
+  if (smem + sizeof(float4) * kSmemRecs * kRec4 > 46 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long n_blocks = (long long)P.nx * ((P.ny + band_rows(P) - 1) / band_rows(P));
-  cells_kernel<<<(unsigned int)n_blocks, kThreads, smem, st>>>(
-      P, reinterpret_cast<const unsigned char*>(S.occ), S.idx, S.rec, stks, pres);
+  cells_kernel<<<(unsigned int)n_blocks, kThreads, smem, st>>>(P, S, stks, pres);
   return cudaGetLastError();
 }
 
 }  // namespace yofc
+
+// The scratch layout of `carve` for ncell = sizes[0] and n_rec = sizes[1]:
+// out gets the word offsets of cnt, base, lst, rec and the total words, so
+// the Python side can check its own.
+extern "C" int yofc_scratch_layout(const long long* sizes, long long* out) {
+  yofc::scratch_layout(sizes[0], sizes[1], out);
+  return 0;
+}
 
 // Sizes of the parameter arrays and of a record, so the Python side can
 // check its layout.

@@ -24,20 +24,25 @@
 // What the fused design does about it: work is done only where particles
 // are, in three launches.
 //   1. scan: each thread reads the radii of 4 cells (coalesced, the radius
-//      plane read once), writes their occupancy bytes, and a block-wide
-//      scan of the occupied slot counts hands each occupied slot a place
-//      in a compact list (one integer atomicAdd per block on the list's
-//      length; the order of blocks in the list does not change any
-//      result) and its record index.
-//   2. rows: a grid-stride loop over the list, one thread per occupied
+//      plane read once) and finds each cell's extent, its highest occupied
+//      rank + 1; a block-wide scan of the extents hands each cell a run of
+//      places in a compact list of slots, ranks 0..extent-1 in order (one
+//      integer atomicAdd per block on the list's length; the order of
+//      blocks in the list does not change any result). The cell's count
+//      and the place of its rank 0 say where its records are. Binned
+//      tables fill ranks from 0, so the list holds the occupied slots; an
+//      empty slot below an occupied rank gets a zero record.
+//   2. rows: a grid-stride loop over the list, one thread per listed
 //      slot, so whole warps run exchange_common.cuh's rows pass (the
-//      slot's record); only the occupied slots' other channels of D are
+//      slot's record); only the listed slots' other channels of D are
 //      read.
 //   3. cells: exchange_common.cuh's cells pass (a gather through shared
 //      memory, no atomics), which writes stks and pres once, coalesced.
-// The interpolation (yofc_planes_interp) and the deposit
-// (yofc_planes_deposit) of the two-kernel path stay one thread per slot
-// and one thread per (dx stack, cell).
+// The deposit of the two-kernel path (yofc_planes_deposit) runs the same
+// scan, a records pass that stores each listed slot's factors and its 8
+// values of V, and the cells pass without pres: the 201 MB of stacks are
+// written once and V is read only where slots are occupied. The
+// interpolation (yofc_planes_interp) stays one thread per slot.
 
 #include "exchange_common.cuh"
 
@@ -48,48 +53,46 @@ namespace {
 constexpr int kScanCells = 4;          // cells per thread in the scan
 constexpr unsigned int kMaxRowBlocks = 2048;
 
+// Blocks of a grid-stride loop over the list of slots.
+inline unsigned int list_blocks(const Params& P) {
+  const unsigned int want = blocks(P.n_rec);
+  return want < 1 ? 1 : (want > kMaxRowBlocks ? kMaxRowBlocks : want);
+}
+
 __global__ void scan_kernel(Params P, const float* __restrict__ D, Scratch S) {
   __shared__ int s_warp[kThreads / 32];
   __shared__ int s_total, s_base;
   const long long n_slot = (long long)P.cap * P.ncell;
   const float* rad = D + 6 * n_slot;
   const long long c0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kScanCells;
-  unsigned int bits[kScanCells];
+  int ext[kScanCells];
   int n = 0;
 #pragma unroll
   for (int j = 0; j < kScanCells; ++j) {
     const long long c = c0 + j;
-    unsigned int b = 0;
+    int e = 0;
     if (c < P.ncell) {
       for (int k = 0; k < P.cap; ++k)
-        b |= (__ldg(rad + (long long)k * P.ncell + c) > 0.0f ? 1u : 0u) << k;
+        if (__ldg(rad + (long long)k * P.ncell + c) > 0.0f) e = k + 1;
     }
-    bits[j] = b;
-    n += __popc(b);
+    ext[j] = e;
+    n += e;
   }
   int pos = block_exclusive_scan(n, s_warp, &s_total);
   if (threadIdx.x == 0) s_base = s_total ? atomicAdd(S.lst, s_total) : 0;
   __syncthreads();
   pos += s_base;
-  unsigned char* occ = reinterpret_cast<unsigned char*>(S.occ);
 #pragma unroll
   for (int j = 0; j < kScanCells; ++j) {
     const long long c = c0 + j;
     if (c >= P.ncell) break;
-    unsigned int kept = 0;
-    for (int k = 0; k < P.cap; ++k) {
-      if (!((bits[j] >> k) & 1u)) continue;
-      // a list past n_rec (a wrong bound from the caller) drops the slot
-      // rather than write past the scratch
-      if (pos < P.n_rec) {
-        const long long s = (long long)k * P.ncell + c;
-        S.lst[1 + pos] = (int)s;
-        S.idx[s] = pos;
-        kept |= 1u << k;
-      }
-      ++pos;
-    }
-    occ[c] = (unsigned char)kept;
+    // a list past n_rec (a wrong bound from the caller) keeps the ranks
+    // that fit rather than write past the scratch
+    const int kept = max(0, min(ext[j], P.n_rec - pos));
+    for (int k = 0; k < kept; ++k) S.lst[1 + pos + k] = (int)((long long)k * P.ncell + c);
+    S.cnt[c] = kept;
+    if (kept) S.base[c] = pos;
+    pos += ext[j];
   }
 }
 
@@ -106,7 +109,11 @@ __global__ void planes_rows_kernel(Params P, const float* __restrict__ Fp,
     float d[CD];
 #pragma unroll
     for (int c = 0; c < CD; ++c) d[c] = __ldg(D + c * n_slot + s);
-    exchange_slot<TORQUE, AM>(P, Fp, i, y, z, d, S.rec + (long long)j * kRec);
+    float* rec = S.rec + (long long)j * kRec;
+    if (d[6] > 0.0f)
+      exchange_slot<TORQUE, AM>(P, Fp, i, y, z, d, rec);
+    else
+      zero_record(rec);
   }
 }
 
@@ -114,9 +121,7 @@ template <bool TORQUE, bool AM>
 cudaError_t launch_rows_t(const Params& P, const float* Fp, const float* D, const Scratch& S,
                           cudaStream_t st) {
   if (!counts_agree<TORQUE, AM>(P)) return cudaErrorInvalidValue;
-  const unsigned int want = blocks(P.n_rec);
-  const unsigned int grid = want < 1 ? 1 : (want > kMaxRowBlocks ? kMaxRowBlocks : want);
-  planes_rows_kernel<TORQUE, AM><<<grid, kThreads, 0, st>>>(P, Fp, D, S);
+  planes_rows_kernel<TORQUE, AM><<<list_blocks(P), kThreads, 0, st>>>(P, Fp, D, S);
   return cudaGetLastError();
 }
 
@@ -167,49 +172,45 @@ cudaError_t launch_interp_t(const Params& P, const float* Fp, const float* D,
   return cudaGetLastError();
 }
 
-// One thread per (dx stack, cell): all 8 channels of
-// stks[dx][c, i, y, z] = sum_o sum_k w_o(slot) * V[c, slot] over the
-// source slots at (i, y - dy, z - dz) of the offsets o with that dx; the
-// weight is recomputed from D (raw Gaussian product, V pre-normalised).
-__global__ void deposit_kernel(Params P, const float* __restrict__ D,
-                               const float* __restrict__ V, float* __restrict__ stks) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)kStacks * P.ncell) return;
-  int ci = (int)(t / P.ncell);      // the stack of dx = ci - 1
-  long long cell = t % P.ncell;
-  int i, y, z;
-  cell_coords(P, cell, &i, &y, &z);
-  long long n_slot = (long long)P.cap * P.ncell;
-  float acc[kCout];
-#pragma unroll
-  for (int c = 0; c < kCout; ++c) acc[c] = 0.0f;
-  for (int o = 0; o < P.n_off; ++o) {
-    int dx = P.off[o][0], dy = P.off[o][1], dz = P.off[o][2];
-    if (dx + 1 != ci) continue;
-    // the source slot whose deposit lands on (y, z) after the (dy, dz) shift
-    int ys = ((y - dy) % P.ny + P.ny) % P.ny;
-    int zs = ((z - dz) % P.nz + P.nz) % P.nz;
-    long long src = ((long long)i * P.ny + ys) * P.nz + zs;
-    float contrib[kCout];
-#pragma unroll
-    for (int c = 0; c < kCout; ++c) contrib[c] = 0.0f;
-    for (int k = 0; k < P.cap; ++k) {
-      long long s = (long long)k * P.ncell + src;
-      float rad = D[6 * n_slot + s];
-      if (!(rad > 0.0f)) continue;
-      float w = factor(P, 0, D[s], dx, i + P.x_off, P.nx_global)
-                * factor(P, 1, D[n_slot + s], dy, ys, P.ny)
-                * factor(P, 2, D[2 * n_slot + s], dz, zs, P.nz);
-#pragma unroll
-      for (int c = 0; c < kCout; ++c) contrib[c] = contrib[c] + w * V[c * n_slot + s];
+// The deposit's records pass: a grid-stride loop over the scan's list, one
+// thread per listed slot: the slot's 8 pre-normalised values V[c, slot]
+// and its 9 separable factors (the raw Gaussian of its own position, with
+// the wall masks) into its record, for the cells pass to gather; an empty
+// slot below an occupied rank gets a zero record.
+__global__ void deposit_records_kernel(Params P, const float* __restrict__ D,
+                                       const float* __restrict__ V, Scratch S) {
+  const long long n_slot = (long long)P.cap * P.ncell;
+  const int n = min(*S.lst, P.n_rec);
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n; j += gridDim.x * blockDim.x) {
+    const long long s = __ldg(S.lst + 1 + j);
+    float* rec = S.rec + (long long)j * kRec;
+    if (!(__ldg(D + 6 * n_slot + s) > 0.0f)) {
+      zero_record(rec);
+      continue;
     }
-#pragma unroll
-    for (int c = 0; c < kCout; ++c) acc[c] = acc[c] + contrib[c];
+    int i, y, z;
+    cell_coords(P, s % P.ncell, &i, &y, &z);
+    float fx[3], fy[3], fz[3];
+    factors(P, __ldg(D + s), __ldg(D + n_slot + s), __ldg(D + 2 * n_slot + s), i + P.x_off, y,
+            z, fx, fy, fz);
+    float4* r4 = reinterpret_cast<float4*>(rec);
+    r4[0] = make_float4(__ldg(V + s), __ldg(V + n_slot + s), __ldg(V + 2 * n_slot + s),
+                        __ldg(V + 3 * n_slot + s));
+    r4[1] = make_float4(__ldg(V + 4 * n_slot + s), __ldg(V + 5 * n_slot + s),
+                        __ldg(V + 6 * n_slot + s), __ldg(V + 7 * n_slot + s));
+    r4[2] = make_float4(fx[0], fx[1], fx[2], fy[0]);
+    r4[3] = make_float4(fy[1], fy[2], fz[0], fz[1]);
+    r4[4] = make_float4(fz[2], 0.0f, 0.0f, 0.0f);
   }
-#pragma unroll
-  for (int c = 0; c < kCout; ++c) {
-    stks[((long long)ci * kCout + c) * P.ncell + cell] = acc[c];
-  }
+}
+
+// The scan of the fused exchange and the deposit: the list's length set to
+// 0, then scan_kernel.
+cudaError_t launch_scan(const Params& P, const float* D, const Scratch& S, cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(S.lst, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  scan_kernel<<<blocks(P.ncell, (long long)kThreads * kScanCells), kThreads, 0, st>>>(P, D, S);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -221,8 +222,9 @@ extern "C" {
 // cudaErrorInvalidValue for parameters the kernels do not take), else 0.
 
 // scratch holds the layout of exchange_common.cuh's `carve` for n_rec
-// records, n_rec at least the number of occupied slots of D; nothing in it
-// needs to be set on entry.
+// records, n_rec at least the number of listed slots of D (its occupied
+// slots when ranks fill from 0, as binning gives); nothing in it needs to
+// be set on entry.
 int yofc_planes_fused(const int* iparams, const float* fparams, const float* Fp,
                       const float* D, int* scratch, float* stks, float* pres,
                       void* stream) {
@@ -231,9 +233,7 @@ int yofc_planes_fused(const int* iparams, const float* fparams, const float* Fp,
   cudaStream_t st = (cudaStream_t)stream;
   Scratch S = carve(P, scratch);
   cudaError_t err;
-  if ((err = cudaMemsetAsync(S.lst, 0, sizeof(int), st)) != cudaSuccess) return (int)err;
-  scan_kernel<<<blocks(P.ncell, (long long)kThreads * kScanCells), kThreads, 0, st>>>(P, D, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_scan(P, D, S, st)) != cudaSuccess) return (int)err;
   if ((err = launch_rows(P, Fp, D, S, st)) != cudaSuccess) return (int)err;
   if ((err = launch_cells(P, S, stks, pres, st)) != cudaSuccess) return (int)err;
   return 0;
@@ -254,13 +254,18 @@ int yofc_planes_interp(const int* iparams, const float* fparams, const float* Fp
   return (int)err;
 }
 
+// scratch as for yofc_planes_fused; V is (8, cap, ncell) pre-normalised.
 int yofc_planes_deposit(const int* iparams, const float* fparams, const float* D,
-                        const float* V, float* stks, void* stream) {
+                        const float* V, int* scratch, float* stks, void* stream) {
   Params P = make_params(iparams, fparams);
-  if (!P.absolute || P.n_off <= 0 || P.n_off > kMaxOff) return (int)cudaErrorInvalidValue;
-  deposit_kernel<<<blocks((long long)kStacks * P.ncell), kThreads, 0, (cudaStream_t)stream>>>(
-      P, D, V, stks);
-  return (int)cudaGetLastError();
+  if (!P.absolute || !fused_sizes_ok(P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Scratch S = carve(P, scratch);
+  cudaError_t err;
+  if ((err = launch_scan(P, D, S, st)) != cudaSuccess) return (int)err;
+  deposit_records_kernel<<<list_blocks(P), kThreads, 0, st>>>(P, D, V, S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_cells(P, S, stks, nullptr, st);
 }
 
 }  // extern "C"

@@ -21,19 +21,25 @@
 // What the design does about it. The TPU kernel staged each plane's window
 // into slot planes with one-hot bf16 matmuls because the TPU has no
 // scatter. Here nothing is staged: work is done only where particles are.
-//   0. memset of the occupancy bytes (one per cell, 2 MB at 128^3).
+//   0. memset of the per-cell record counts (8 MB at 128^3).
 //   1. rows: one thread per window row (i, w). Rows past counts[i] (read
-//      on the card, no host copy), with y < 0, with rank >= cap or radius
-//      0 do nothing; a live row owns slot (rank, i, y, z) and runs
-//      exchange_common.cuh's rows pass from hi + lo (exact in f32): its
-//      record at index i * W + w, the slot's record index and its
-//      occupancy bit (an integer atomicOr: ranks of one cell are different
-//      rows). The rows of a plane are sorted by cell and the live ones come
-//      first, so whole warps run the interpolation.
+//      on the card, no host copy), with y < 0 or with rank >= cap do
+//      nothing; a live row owns slot (rank, i, y, z) and runs
+//      exchange_common.cuh's rows pass from hi + lo (exact in f32) into
+//      its record at index i * W + w. The window_bins layout puts the rows
+//      of one cell next to each other, rank 0 first (rows sorted by cell,
+//      ranks counted in sorted order, a plane's count and its window cut
+//      only the top ranks of a cell), so the cell's rank-0 record is at
+//      i * W + w - rank: the row writes that base and raises the cell's
+//      count to rank + 1 (an integer atomicMax, which no order changes). A
+//      row of radius 0 (an empty slot) writes a zero record, so a gap
+//      below an occupied rank adds nothing. Whole warps run the
+//      interpolation: the live rows of a plane come first.
 //   2. cells: exchange_common.cuh's cells pass (a gather through shared
 //      memory, no atomics), which writes stks and pres once, coalesced.
 // So the only dense traffic is the outputs' single write, Fp and the
-// 2 MB occupancy plane; the records (96 B a live row) stay in L2.
+// counts plane; the records (96 B a live row) stay in L2. Any slot
+// capacity works the same way.
 
 #include "exchange_common.cuh"
 
@@ -57,17 +63,22 @@ __global__ void window_rows_kernel(Params P, const float* __restrict__ Fp,
   const int yi = (int)y;
   const int zi = (int)__ldg(row + (long long)(2 * CD + 1) * P.W);
   const int k = (int)__ldg(row + (long long)(2 * CD + 2) * P.W);
-  if (k < 0 || k >= P.cap || yi >= P.ny || zi < 0 || zi >= P.nz) return;
+  // w < k: rank 0 would lie outside the plane's window, which the layout
+  // never gives
+  if (k < 0 || k >= P.cap || k > w || yi >= P.ny || zi < 0 || zi >= P.nz) return;
   float d[CD];
 #pragma unroll
   for (int c = 0; c < CD; ++c)
     d[c] = __ldg(row + (long long)c * P.W) + __ldg(row + (long long)(CD + c) * P.W);
-  if (!(d[6] > 0.0f)) return;   // an empty slot, as in the plain version
+  float* rec = S.rec + t * kRec;
+  if (!(d[6] > 0.0f)) {   // an empty slot, as in the plain version
+    zero_record(rec);
+    return;
+  }
   const long long cell = ((long long)i * P.ny + yi) * P.nz + zi;
-  const long long s = (long long)k * P.ncell + cell;
-  exchange_slot<TORQUE, AM>(P, Fp, i, yi, zi, d, S.rec + t * kRec);
-  S.idx[s] = (int)t;
-  atomicOr(S.occ + (cell >> 2), 1u << (8 * (int)(cell & 3) + k));
+  exchange_slot<TORQUE, AM>(P, Fp, i, yi, zi, d, rec);
+  S.base[cell] = (int)(t - k);
+  atomicMax(S.cnt + cell, k + 1);
 }
 
 template <bool TORQUE, bool AM>
@@ -109,7 +120,8 @@ int yofc_window_exchange(const int* iparams, const float* fparams,
   cudaStream_t st = (cudaStream_t)stream;
   Scratch S = carve(P, scratch);
   cudaError_t err;
-  if ((err = cudaMemsetAsync(S.occ, 0, occ_words(P) * 4, st)) != cudaSuccess) return (int)err;
+  if ((err = cudaMemsetAsync(S.cnt, 0, P.ncell * sizeof(int), st)) != cudaSuccess)
+    return (int)err;
   if ((err = launch_rows(P, Fp, dat_win, counts, S, st)) != cudaSuccess) return (int)err;
   if ((err = launch_cells(P, S, stks, pres, st)) != cudaSuccess) return (int)err;
   return 0;

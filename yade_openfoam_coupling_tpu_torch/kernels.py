@@ -30,9 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every library's C entry points and their argument counts (all pointers)
 ENTRY_POINTS = {
-    "window_exchange": {"yofc_param_counts": 3, "yofc_window_exchange": 9},
-    "planes_exchange": {"yofc_param_counts": 3, "yofc_planes_fused": 8,
-                        "yofc_planes_interp": 7, "yofc_planes_deposit": 6},
+    "window_exchange": {"yofc_param_counts": 3, "yofc_scratch_layout": 2,
+                        "yofc_window_exchange": 9},
+    "planes_exchange": {"yofc_param_counts": 3, "yofc_scratch_layout": 2,
+                        "yofc_planes_fused": 8, "yofc_planes_interp": 7,
+                        "yofc_planes_deposit": 7},
     "rolls_deposit": {"yofc_rolls_deposit": 4},
     "laplacian": {"yofc_laplacian": 8},
     "dynwin_staging": {"yofc_dynwin_staging": 5},

@@ -7,7 +7,8 @@ particle chunks under ``particle_chunks > 1``, the planes one in x-slabs
 under ``planes_chunks > 1``; or the point-force one), the DEM substeps (on
 the frozen Verlet list, or on one list built per step, or on all pairs),
 then the fluid: PISO, or the turbulence correction and PIMPLE, both with
-the masked-cell obstacles of ``CaseConfig.solid``; then the diagnostics.
+the masked-cell obstacles of ``CaseConfig.solid`` (their masks built once
+per device); then the diagnostics.
 `make_scan_fn` runs the steps as a Python loop, in chunks of [one
 Verlet-list rebuild -> K frozen-list steps] under ``list_reuse``, and
 stacks the per-step diagnostics along a leading axis.
@@ -82,10 +83,19 @@ class CaseConfig:
         return self.bcs.periodic_axes()
 
     def obstacle_masks(self, device):
-        """The ObstacleMasks of `solid` on ``device``, or None."""
+        """The ObstacleMasks of `solid` on ``device``, or None. They are
+        built once per device and reused by every later call, as the JAX
+        package folds them into its program once. They are kept in the
+        instance's dict, beside its fields, so a config with another
+        `solid` (``dataclasses.replace``) starts with none built. Edit no
+        `solid` array in place after its first step."""
         if self.solid is None:
             return None
-        return ob.build_masks(self.solid, self.bcs.periodic_axes(), device)
+        built = self.__dict__.setdefault("_obstacle_masks", {})
+        key = str(torch.device(device))
+        if key not in built or built[key][0] is not self.solid:
+            built[key] = (self.solid, ob.build_masks(self.solid, self.bcs.periodic_axes(), device))
+        return built[key][1]
 
 
 def _check_supported(cfg: CaseConfig) -> None:

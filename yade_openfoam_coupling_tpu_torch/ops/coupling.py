@@ -273,16 +273,24 @@ def deposit_stack(values: torch.Tensor, sup: GaussianSupport, grid: Grid,
     return _deposit_anchor_rolls(values, sup, grid, offsets)
 
 
+def anchor_row_length(ncells: int) -> int:
+    """Row length of the anchor buffer: ncells + 1 (column ncells is the
+    scrap bin) rounded up to 32 floats, so every (offset, channel) plane
+    starts 128-byte aligned and kernel B3 reads it with vector loads."""
+    return -(-(ncells + 1) // 32) * 32
+
+
 def _deposit_anchor_rolls(values, sup: GaussianSupport, grid: Grid, offsets) -> torch.Tensor:
     """One N-row scatter of all S*C channels onto the anchor cells, straight
-    into an offset-major (S*C, ncells + 1) buffer (the last column is the
-    scrap bin), then the roll distribution over the (S, C, grid) view of
-    its first ncells columns. The distribution is kernel B3 when every
+    into an offset-major (S*C, anchor_row_length) buffer (column ncells is
+    the scrap bin), then the roll distribution over the (S, C, grid) view
+    of its first ncells columns. The distribution is kernel B3 when every
     side of the grid is at least 8 (the JAX package's own rule,
     `coupling.py:532-536`); smaller grids take the plain roll loop."""
     ncells = grid.ncells
     N, S, C = values.shape
-    buf = torch.zeros((S * C, ncells + 1), dtype=values.dtype, device=values.device)
+    buf = torch.zeros((S * C, anchor_row_length(ncells)), dtype=values.dtype,
+                      device=values.device)
     buf.index_add_(1, sup.base_flat.long(), values.reshape(N, S * C).T)
     bufT = buf[:, :ncells].view((S, C) + grid.shape)
     if min(grid.shape) >= 8:

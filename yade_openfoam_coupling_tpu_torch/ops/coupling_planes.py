@@ -346,7 +346,6 @@ _IPARAMS = ("nx", "ny", "nz", "cap", "nx_global", "x_off", "C_d", "C_in", "n_pre
 _MAX_OFF = 27
 _N_FPARAMS = 23
 _REC_FLOATS = 24     # floats of one slot record of the fused exchanges (kRec)
-_MAX_CAP = 8         # ranks one occupancy byte holds (kMaxCap)
 
 
 def _channel_counts(cfg: cp.CouplingConfig):
@@ -400,20 +399,31 @@ def _kernel_params_cached(grid, periodic, cfg, nxl, C_d, C_in, x_off, absolute, 
     return ip, fp
 
 
-def _scratch_words(ncl: int, cap: int, n_rec: int) -> int:
-    """4-byte words of the fused exchanges' scratch (`carve` in
-    csrc/exchange_common.cuh): occupancy bytes, per-slot record indices,
-    the list of occupied slots and n_rec records, each segment rounded up
-    to 4 words."""
+def _scratch_layout(ncl: int, n_rec: int) -> Tuple[int, int, int, int, int]:
+    """Word offsets of the fused exchanges' scratch segments (`carve` in
+    csrc/exchange_common.cuh): per-cell record counts, per-cell record
+    bases, the list of slots, n_rec records; then the total words. Each
+    segment is rounded up to 4 words, so the records start on 16 bytes.
+    No segment depends on the slot capacity."""
     def r4(n):
         return -(-n // 4) * 4
-    return r4(-(-ncl // 4)) + r4(cap * ncl) + r4(1 + n_rec) + _REC_FLOATS * n_rec
+    cnt = 0
+    base = cnt + r4(ncl)
+    lst = base + r4(ncl)
+    rec = lst + r4(1 + n_rec)
+    return cnt, base, lst, rec, rec + _REC_FLOATS * n_rec
 
 
-def _check_cap(kernel: str, cap: int):
-    if not 1 <= cap <= _MAX_CAP:
-        raise ValueError(f"{kernel}: slot_capacity {cap} not taken (the kernel keeps one "
-                         f"occupancy byte per cell: 1 <= cap <= {_MAX_CAP})")
+def _scratch_words(ncl: int, n_rec: int) -> int:
+    """4-byte words of the fused exchanges' scratch."""
+    return _scratch_layout(ncl, n_rec)[-1]
+
+
+def _record_count(cap: int, ncl: int, max_occupied: Optional[int]) -> int:
+    """Records the planes kernels' scratch holds: ``max_occupied`` (a bound
+    on the occupied slots of the slot table, e.g. the particles binned
+    into it), at most every slot; every slot when None."""
+    return cap * ncl if max_occupied is None else min(int(max_occupied), cap * ncl)
 
 
 def _on_cpu(kernel: str, t: torch.Tensor, cfg: cp.CouplingConfig) -> bool:
@@ -441,12 +451,24 @@ def _check_cuda(kernel: str, name: str, t: torch.Tensor, shape, device,
 
 
 _LAYOUT_CHECKED = set()
+# (ncell, n_rec) pairs at which the libraries' scratch layout is checked
+_LAYOUT_PROBES = ((5, 0), (7, 3), (210, 61), (128 ** 3, 100_000))
+
+
+def library_scratch_layout(lib_name: str, ncl: int, n_rec: int):
+    """The scratch layout that `carve` of library ``lib_name`` uses: word
+    offsets of its segments and the total, as `_scratch_layout` gives them."""
+    from ..kernels import library
+    sizes = np.array([ncl, n_rec], np.int64)
+    out = np.zeros(5, np.int64)
+    library(lib_name).yofc_scratch_layout(sizes.ctypes.data, out.ctypes.data)
+    return tuple(int(v) for v in out)
 
 
 def _launch(lib_name: str, fn: str, kernel: str, ip, fp, *tensors, device):
     """Call one entry point of a kernel library on the current stream;
     raise if a launch fails, or, at the first call into each library, if
-    its parameter or record layout differs from this module's."""
+    its parameter, record or scratch layout differs from this module's."""
     from ..kernels import call, library
     if lib_name not in _LAYOUT_CHECKED:
         counts = [ctypes.c_int() for _ in range(3)]
@@ -455,6 +477,10 @@ def _launch(lib_name: str, fn: str, kernel: str, ip, fp, *tensors, device):
         if got != (ip.size, fp.size, _REC_FLOATS):
             raise RuntimeError(f"{kernel}: parameter layout of the library {got} != "
                                f"{(ip.size, fp.size, _REC_FLOATS)}")
+        for probe in _LAYOUT_PROBES:
+            if library_scratch_layout(lib_name, *probe) != _scratch_layout(*probe):
+                raise RuntimeError(f"{kernel}: scratch layout of the library differs from "
+                                   f"_scratch_layout at (ncell, n_rec) = {probe}")
         _LAYOUT_CHECKED.add(lib_name)
     call(lib_name, fn, kernel, ip, fp, *tensors, device=device)
 
@@ -528,10 +554,12 @@ def deposit_stacks_reference(V, D, nxl: int, grid: Grid, periodic,
 
 
 def deposit_stacks(V: torch.Tensor, D: torch.Tensor, nxl: int, grid: Grid, periodic,
-                   cfg: cp.CouplingConfig, x_off):
+                   cfg: cp.CouplingConfig, x_off, *, max_occupied: Optional[int] = None):
     """-> (stks (3, 8, nxl, ny, nz), combos): one deposit stack per dx with
     the dy and dz shifts applied. CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise. ``max_occupied`` bounds the
+    occupied slots of D and sizes the kernel's compact per-slot records,
+    as in `fused_exchange_padded`; the plain version ignores it."""
     kernel = "planes deposit kernel"
     if _on_cpu(kernel, V, cfg):
         return deposit_stacks_reference(V, D, nxl, grid, periodic, cfg, x_off)
@@ -541,10 +569,12 @@ def deposit_stacks(V: torch.Tensor, D: torch.Tensor, nxl: int, grid: Grid, perio
         raise ValueError(f"{kernel}: C_d {D.shape[0]} not taken")
     _check_cuda(kernel, "V", V, (8, cap, ncl), dev)
     _check_cuda(kernel, "D", D, (D.shape[0], cap, ncl), dev)
+    n_rec = _record_count(cap, ncl, max_occupied)
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, D.shape[0], 0, int(x_off),
-                            absolute=True)
+                            absolute=True, n_rec=n_rec)
+    scratch = torch.empty(_scratch_words(ncl, n_rec), dtype=torch.int32, device=dev)
     stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
-    _launch("planes_exchange", "yofc_planes_deposit", kernel, ip, fp, D, V, stks,
+    _launch("planes_exchange", "yofc_planes_deposit", kernel, ip, fp, D, V, scratch, stks,
             device=dev)
     deposit_stacks.launches += 1
     return stks, list(DX_COMBOS)
@@ -553,9 +583,11 @@ def deposit_stacks(V: torch.Tensor, D: torch.Tensor, nxl: int, grid: Grid, perio
 deposit_stacks.launches = 0
 
 
-def deposit_planes(V, D, grid: Grid, periodic, cfg: cp.CouplingConfig):
+def deposit_planes(V, D, grid: Grid, periodic, cfg: cp.CouplingConfig, *,
+                   max_occupied: Optional[int] = None):
     """-> (8, nx, ny, nz) deposited fields (weights applied inside)."""
-    stks, combos = deposit_stacks(V, D, grid.shape[0], grid, periodic, cfg, 0)
+    stks, combos = deposit_stacks(V, D, grid.shape[0], grid, periodic, cfg, 0,
+                                  max_occupied=max_occupied)
     return _stack_epilogue(stks, combos)
 
 
@@ -593,13 +625,12 @@ def fused_exchange_padded(Fp: torch.Tensor, D: torch.Tensor, grid: Grid, periodi
     nxl, ny, nz = Fp.shape[1] - 2, Fp.shape[2] - 2, Fp.shape[3] - 2
     cap, ncl, dev = cfg.slot_capacity, nxl * ny * nz, Fp.device
     C_d, C_in, n_pres = _channel_counts(cfg)
-    _check_cap(kernel, cap)
     _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
     _check_cuda(kernel, "D", D, (C_d, cap, ncl), dev)
-    n_rec = cap * ncl if max_occupied is None else min(int(max_occupied), cap * ncl)
+    n_rec = _record_count(cap, ncl, max_occupied)
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
                             absolute=True, nu=nu, rho_f=rho_f, n_rec=n_rec)
-    scratch = torch.empty(_scratch_words(ncl, cap, n_rec), dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_words(ncl, n_rec), dtype=torch.int32, device=dev)
     stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
     pres = torch.empty((n_pres, cap, ncl), dtype=torch.float32, device=dev)
     _launch("planes_exchange", "yofc_planes_fused", kernel, ip, fp, Fp, D, scratch, stks,
@@ -710,7 +741,8 @@ def gaussian_coupling_planes(
         # runs one raw-weight pass
         zero = torch.zeros((), dtype=norm.dtype, device=norm.device)
         inv_norm = torch.where(norm > 0.0, 1.0 / torch.where(norm > 0.0, norm, 1.0), zero)
-        fields = deposit_planes(V * inv_norm[None], bins.D, grid, periodic, cfg)
+        fields = deposit_planes(V * inv_norm[None], bins.D, grid, periodic, cfg,
+                                max_occupied=pf.pos.shape[0])
         per = torch.cat([force, torque, found.to(force.dtype)[None]])
 
     res = _unbin_rows(per, bins.cell_sorted, bins.rank, bins.keep, ncells,

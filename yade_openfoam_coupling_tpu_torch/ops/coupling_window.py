@@ -26,7 +26,6 @@ from . import coupling as cp
 from .coupling_planes import (
     DX_COMBOS,
     _channel_counts,
-    _check_cap,
     _check_cuda,
     _coupling_result,
     _input_stack,
@@ -166,7 +165,6 @@ def window_exchange_padded(
     C_w = 2 * C_d + 3
     W = dat_win.shape[-1]
     dev = Fp.device
-    _check_cap(kernel, cap)
     _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
     _check_cuda(kernel, "dat_win", dat_win, (nxl, C_w, W), dev)
     if counts is not None:
@@ -175,7 +173,7 @@ def window_exchange_padded(
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
                             absolute=False, nu=nu, rho_f=rho_f, W=W, C_w=C_w, n_rec=nxl * W)
     ncell = nxl * ny * nz
-    scratch = torch.empty(_scratch_words(ncell, cap, nxl * W), dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_words(ncell, nxl * W), dtype=torch.int32, device=dev)
     stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
     pres = torch.empty((n_pres, cap, ncell), dtype=torch.float32, device=dev)
     _launch("window_exchange", "yofc_window_exchange", kernel, ip, fp, Fp, dat_win,

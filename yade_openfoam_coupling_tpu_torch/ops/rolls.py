@@ -1,9 +1,9 @@
 """Roll distribution of the sparse exchange's anchor deposits (port of
 `yade_openfoam_coupling_tpu/ops/pallas_rolls.py`, kernel B3).
 
-The sparse deposit scatters every particle's (S*C) weighted channels onto
-its anchor cell, offset-major, then distributes offset o's channels to
-cell + o:
+The sparse and point-force deposits scatter every particle's (S*C)
+weighted channels onto its anchor cell, offset-major, then distribute
+offset o's channels to cell + o:
 
     out[c] = sum_o roll(bufT[o, c], offsets[o])
 
@@ -37,10 +37,12 @@ def _plane_stride(bufT: torch.Tensor, offsets: np.ndarray) -> int:
     """The stride between consecutive (o, c) planes of bufT, after checking
     what the kernel takes: a float32 (S, C, nx, ny, nz) view whose grid
     planes are contiguous and whose S*C planes are evenly strided (an
-    offset-major scatter buffer, possibly with a trailing scrap column),
-    and at most 27 offsets, each shorter than its axis. A dim of size 1
-    has no meaningful stride, so the plane stride is read from a dim that
-    has more than one plane."""
+    offset-major scatter buffer, possibly with trailing columns: the scrap
+    bin and the padding to 32 floats), and at most 27 offsets, each
+    shorter than its axis. A dim of size 1 has no meaningful stride, so
+    the plane stride is read from a dim that has more than one plane. The
+    kernel reads a layout whose rows start on 16 bytes (nz and the stride
+    multiples of 4) with vector loads, and any other with scalar loads."""
     if bufT.dtype != torch.float32 or bufT.dim() != 5:
         raise ValueError(f"{_KERNEL}: bufT must be a float32 (S, C, nx, ny, nz) tensor; "
                          f"got {bufT.dtype} {tuple(bufT.shape)}")

@@ -1,8 +1,12 @@
-"""Time the coupling-exchange kernels B1 (`window_exchange_padded`) and B4
-(`fused_exchange_padded`) on one CUDA device at the main path's shape:
-bench.py's 100k-particle jittered lattice on a 128^3 channel (h = 1 mm,
-periodic x and y, walls in z), the sphere2 stencil, 4 slots a cell; B1
-also with torque and added mass.
+"""Time the coupling-exchange kernels B1 (`window_exchange_padded`), B4
+(`fused_exchange_padded`) and B6 (`deposit_stacks`, the two-kernel planes
+deposit, of seeded pre-normalised values) on one CUDA device at the main
+path's shape: bench.py's 100k-particle jittered lattice on a 128^3 channel
+(h = 1 mm, periodic x and y, walls in z), the sphere2 stencil, 4 slots a
+cell; B1 also with torque and added mass. Then B3 (`distribute_rolls`) at
+its two paths' shapes, 27 taps x 4 channels (the sparse exchange) and 8 x 3
+(the point-force exchange), on a seeded anchor buffer laid out as the
+timed tree's `_deposit_anchor_rolls` lays it out.
 
     python yade_openfoam_coupling_tpu_torch/scripts/exchange_timing.py [--root DIR]
 
@@ -80,6 +84,17 @@ def peak_mb(fn):
     return peak / 1e6, (peak - base) / 1e6
 
 
+def anchor_buffer(cp, grid, S, C, gen):
+    """A seeded (S, C, grid) view of an offset-major anchor buffer whose rows
+    are as long as the timed tree's deposit makes them
+    (`coupling.anchor_row_length`, or ncells + 1 where it has none)."""
+    import torch
+    ncells = grid.ncells
+    width = cp.anchor_row_length(ncells) if hasattr(cp, "anchor_row_length") else ncells + 1
+    buf = torch.randn((S * C, width), generator=gen, device=gen.device)
+    return buf[:, :ncells].view((S, C) + grid.shape)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -99,6 +114,7 @@ def main(argv=None) -> int:
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+    from yade_openfoam_coupling_tpu_torch.ops import rolls
     from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -137,13 +153,25 @@ def main(argv=None) -> int:
           if "max_occupied" in inspect.signature(cpp.fused_exchange_padded).parameters else {})
     calls["planes_fused"] = lambda: cpp.fused_exchange_padded(
         Fp10, D, grid, PERIODIC, pcfg, 0, NU, RHO_F, **kw)
+    V = 1e-2 * torch.randn((8, CAP, grid.ncells), generator=gen, device=dev)
+    dkw = ({"max_occupied": N}
+           if "max_occupied" in inspect.signature(cpp.deposit_stacks).parameters else {})
+    calls["planes_deposit"] = lambda: cpp.deposit_stacks(V, D, NX, grid, PERIODIC, pcfg, 0,
+                                                         **dkw)
+    for label, offsets, C in (("rolls_deposit (27, 4)", cp.stencil_offsets(
+            cp.CouplingConfig(stencil_shape="cube")), 4),
+                              ("rolls_deposit (8, 3)", cp.TRILINEAR_CORNERS, 3)):
+        bufT = anchor_buffer(cp, grid, len(offsets), C, gen)
+        calls[label] = lambda bufT=bufT, offsets=offsets: rolls.distribute_rolls(bufT, offsets)
 
     if args.profile:
         # the card's rate for the exchange's dense writes, one fill each
         stks = torch.empty((3, 8) + grid.shape, device=dev)
         pres = torch.empty((4, CAP) + grid.shape, device=dev)
         fill = cuda_ms(lambda: (stks.fill_(0.0), pres.fill_(0.0)), args.reps, device_only=True)
-        print(json.dumps({"fill stks and pres (335 MB)": fill, "card": card}), flush=True)
+        fill_stks = cuda_ms(lambda: stks.fill_(0.0), args.reps, device_only=True)
+        print(json.dumps({"fill stks and pres (335 MB)": fill, "fill stks (201 MB)": fill_stks,
+                          "card": card}), flush=True)
         del stks, pres
     for name, fn in calls.items():
         ms = cuda_ms(fn, args.reps)
