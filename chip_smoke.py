@@ -27,12 +27,16 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
     `scripts/proto_dynwin.py`, through its own script;
   * the planes slice's CLI with more than 8 slots a cell: `pimplefoam
     --fast --slot-capacity 9 <case>`, a few steps;
+  * the `--yade-physics` slice: bench.py's configuration with the
+    tangential spring history, dynamic substeps (up to 8, the count from
+    the Rayleigh critical dt), the rows pair layout and no carried contact;
 then holds B1, B4 and B6 at slot capacities 9 and 16 against their plain
 versions on a crowded lattice, the 4-slab chunked planes exchange against
 the whole-grid one, checks the bench's health conditions and that each
 path went through its kernels, and checks the CUDA path against the CPU
 path of the same port on a small case for the window, planes and sparse
-exchanges and for PISO with a box obstacle.
+exchanges, for PISO with a box obstacle and for the `--yade-physics`
+configuration with loaded springs.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (times, the least time the card could take, and a PyTorch call's
@@ -56,6 +60,7 @@ import numpy as np
 from yade_openfoam_coupling_tpu_torch.scripts.exchange_timing import (
     cuda_ms,
     lattice_positions,
+    launch_split,
     peak_mb,
 )
 
@@ -106,6 +111,15 @@ def bench_config(nx):
     )
 
 
+def yade_physics_config(cfg):
+    """cfg with bench.py's `--yade-physics` DEM (bench.py:24-31,122-134,157):
+    the tangential spring history, dynamic substeps up to 8, the rows pair
+    layout, no carried contact."""
+    dem = dataclasses.replace(cfg.dem, carry_contact=False, shear_history=True,
+                              dynamic_substeps=True, pair_layout="rows")
+    return dataclasses.replace(cfg, dem=dem, n_dem_substeps=8)
+
+
 def planes_config(cfg, **coupling_kw):
     """cfg with the CLI's `--fast` coupling (cli.py): the planes exchange,
     'col' staging, dy in the kernel, packed unbin."""
@@ -116,12 +130,41 @@ def planes_config(cfg, **coupling_kw):
     return dataclasses.replace(cfg, coupling=dataclasses.replace(coupling, **coupling_kw))
 
 
-def initial_state(cfg, n, device, vel_scale=0.0):
+def closing_pairs(n, length, n_pairs=16, seed=2):
+    """bench.py's jittered lattice of n - n_pairs particles over the box's
+    middle 80%, with a partner for n_pairs of its sites 13.75 um short of
+    contact, closing at 0.2 m/s and sliding at ~1.4 mm/s (the rest at ~1
+    mm/s): each pair touches in the second step and stays in contact past
+    the fourth, so its springs load. -> numpy (pos, vel)."""
+    rng = np.random.RandomState(seed)
+    m = n - n_pairs
+    k = int(np.ceil(m ** (1 / 3)))
+    sites = np.stack(np.meshgrid(*[np.linspace(0.1 * length, 0.9 * length, k)] * 3,
+                                 indexing="ij"), -1).reshape(-1, 3)[:m]
+    sites += rng.uniform(-0.05 * length / k, 0.05 * length / k, sites.shape)
+    vel = 1e-3 * rng.randn(m, 3)
+    paired = rng.choice(m, n_pairs, replace=False)
+    d = 1.0 + 0.2 * rng.randn(n_pairs, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    slide = 1e-3 * rng.randn(n_pairs, 3)
+    vel[paired] -= np.sum(vel[paired] * d, axis=1, keepdims=True) * d
+    slide -= np.sum(slide * d, axis=1, keepdims=True) * d
+    return (np.concatenate([sites, sites[paired] + (2 * RADIUS + 1.375e-5) * d]),
+            np.concatenate([vel, vel[paired] + slide - 0.2 * d]))
+
+
+def initial_state(cfg, n, device, vel_scale=0.0, particles=None):
+    """The bench lattice (velocities vel_scale x seeded normals), or the
+    (pos, vel) that particles(n, box length) returns, through
+    `initialize_state` on device."""
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
     from yade_openfoam_coupling_tpu_torch.models.fields import (
         make_fluid_state, make_particle_state, make_turbulence_state)
-    pos = lattice_positions(n, cfg.grid.lengths[0])
-    vel = vel_scale * np.random.RandomState(1).randn(n, 3)
+    if particles is None:
+        pos = lattice_positions(n, cfg.grid.lengths[0])
+        vel = vel_scale * np.random.RandomState(1).randn(n, 3)
+    else:
+        pos, vel = particles(n, cfg.grid.lengths[0])
     return cd.initialize_state(
         make_fluid_state(cfg.grid, device),
         make_particle_state(pos, device, vel=vel, radius=RADIUS),
@@ -395,11 +438,13 @@ def laplacian_kernel_phase(device):
 
 def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
     """B7 against its plain version: dynamic equal to static bit for bit,
-    and within KERNEL_RTOL of each plane's scale of the plain one-hot
-    version. Times the kernel (dynamic and static), the plain version and
-    one batched f32 one-hot torch.bmm (TF32 off; the one-hot and the
-    broadcast values built outside the timed call), which computes the
-    same function and which the port does not use."""
+    two launches bit-identical, and within KERNEL_RTOL of each plane's scale
+    of the plain one-hot version. Times the kernel (dynamic and static;
+    host-inclusive, device only, and the kernel alone in a `torch.profiler`
+    trace), the plain version and one batched f32 one-hot torch.bmm (TF32
+    off; the one-hot and the broadcast values built outside the timed call;
+    host-inclusive and device only), which computes the same function and
+    which the port does not use."""
     import torch
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
@@ -409,6 +454,8 @@ def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
     static = dw.stage_planes(*args, False)
     if not torch.equal(dyn, static):
         raise AssertionError(f"dynwin_staging {label}: dynamic and static differ")
+    if not torch.equal(dyn, dw.stage_planes(*args, True)):
+        raise AssertionError(f"dynwin_staging {label}: two launches differ")
     nxl, _, W = dat.shape
     err = check_close("dynwin_staging", label, dyn.reshape(nxl, -1), plain.reshape(nxl, -1))
 
@@ -419,22 +466,31 @@ def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
     E = dat[:, 0].to(torch.bfloat16).float()[:, :, None].expand(nxl, W, nz).contiguous()
     lib_err = float((torch.bmm(onehot, E) - plain).abs().max())
     library_ms = cuda_ms(lambda: torch.bmm(onehot, E), 5)
+    library_dev_ms = cuda_ms(lambda: torch.bmm(onehot, E), 5, device_only=True)
     del onehot, E
     ms = cuda_ms(lambda: dw.stage_planes(*args, True), 50)
     static_ms = cuda_ms(lambda: dw.stage_planes(*args, False), 50)
     dev_ms, dev_static_ms = (cuda_ms(lambda: dw.stage_planes(*args, d), 50, device_only=True)
                              for d in (True, False))
     plain_ms = cuda_ms(lambda: dw.stage_planes_reference(*args, True), 10)
+    prof = launch_split(lambda: dw.stage_planes(*args, True), 50)
+    prof_ms = 1e-3 * sum(us for name, us in prof.items() if "dynwin" in name)
     n_live = int(live.sum())
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    y_split = int(dw.kernel_params(nxl, W, ny, nz, W_CHUNK, True, n_sm)[6])
     print(f"kernel dynwin_staging ({label}: {nxl} planes, W {W}, {ny}x{nz}, {n_live} live "
-          f"rows): dynamic == static bit for bit; max_abs_err {err:.3e}; kernel {ms:.4f} ms "
-          f"dynamic, {static_ms:.4f} ms static ({dev_ms:.4f} and {dev_static_ms:.4f} ms "
-          f"device only), plain {plain_ms:.4f} ms, bmm {library_ms:.4f} ms (its max abs "
-          f"difference {lib_err:.3e})", flush=True)
+          f"rows, grid ({nxl}, {y_split}) on {n_sm} SMs): dynamic == static and two launches "
+          f"bit for bit; "
+          f"max_abs_err {err:.3e}; kernel {ms:.4f} ms dynamic, {static_ms:.4f} ms static "
+          f"({dev_ms:.4f} and {dev_static_ms:.4f} ms device only; profiler {prof_ms:.4f} ms, "
+          f"launches {prof}), plain {plain_ms:.4f} ms, bmm {library_ms:.4f} ms "
+          f"({library_dev_ms:.4f} ms device only; its max abs difference {lib_err:.3e})",
+          flush=True)
     # the live rows' value and y, nch, the output; one add per live row
-    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "profiler_ms": prof_ms,
+            "plain_ms": plain_ms,
             **bound(n_live * 2 * dat.element_size() + nbytes(nch, dyn), n_live),
-            "library_ms": library_ms}
+            "library_ms": library_ms, "library_device_ms": library_dev_ms}
 
 
 def capacity_phase(cfg, pcfg, device, card):
@@ -713,13 +769,14 @@ def read_launches():
     return {name: fn.launches for name, fn in launch_counters().items()}
 
 
-def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS):
+def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report=None):
     """One path at full size, as bench.py runs it: set-up and a warm-up
     chunk, then `timed_runs` timed chunks of STEPS_PER_RUN steps. Every
     launch count is set to 0 just before and read just after; each kernel
     in `kernels` (a list, or a dict of launches per step) must have
-    launched at least that often per step (once for a list). -> (counts,
-    p_iters)."""
+    launched at least that often per step (once for a list). `report(state,
+    diags)` adds to the printed line (diags: per-step numpy arrays). ->
+    (counts, p_iters)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
 
@@ -772,7 +829,8 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS):
     print(f"{label} {N_PARTICLES} particles {NX}^3: {rate}p_iters "
           f"{d['p_iters'].min()}-{d['p_iters'].max()}, p residual {p_final:.3e}, "
           f"continuity {cont:.3e}, overflows {n_over}, launches "
-          f"{ {k: launches[k] for k in per_step} } in {n_steps} steps", flush=True)
+          f"{ {k: launches[k] for k in per_step} } in {n_steps} steps"
+          + (f"; {report(state, d)}" if report else ""), flush=True)
     return launches, d["p_iters"]
 
 
@@ -808,34 +866,44 @@ def chunked_phase(cfg, device):
           f"worst relative difference {worst:.3e}, overflows 0", flush=True)
 
 
-def small_check(device, cfg, label):
+def small_check(device, cfg, label, n=400, particles=None):
     """The CUDA path against the CPU path (plain versions) of the same port
-    on a 16^3 case with 400 moving particles, 4 steps: the state agrees to
-    1e-3 of each field's scale (f32 arithmetic in another order, amplified
-    by stiff contacts and the pressure solve's 1e-5 tolerance)."""
+    on a 16^3 case with n moving particles (the seeded lattice, or
+    `particles`), 4 steps: the state agrees to 1e-3 of each field's scale
+    (f32 arithmetic in another order, amplified by stiff contacts and the
+    pressure solve's 1e-5 tolerance), the springs too where they are on."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
 
     cfg = dataclasses.replace(cfg, dem=dataclasses.replace(cfg.dem, list_rebuild_steps=2))
     out = {}
     for dev in (device, torch.device("cpu")):
-        state = initial_state(cfg, 400, dev, vel_scale=1e-2)
+        state = initial_state(cfg, n, dev, vel_scale=1e-2, particles=particles)
         state, diags = cd.make_scan_fn(cfg, 4)(state)
         out[dev.type] = (state, diags)
     (gs, gd), (cs, cd_) = out["cuda"], out["cpu"]
     if not torch.equal(gd.p_iters.cpu(), cd_.p_iters):
         print(f"note: {label} p_iters cuda {gd.p_iters.tolist()} cpu {cd_.p_iters.tolist()}")
+    fields = [("u", gs.fluid.u, cs.fluid.u), ("p", gs.fluid.p, cs.fluid.p),
+              ("alpha", gs.fluid.alpha, cs.fluid.alpha),
+              ("pos", gs.particles.pos, cs.particles.pos),
+              ("vel", gs.particles.vel, cs.particles.vel)]
+    if cfg.dem.shear_history:
+        if not torch.equal(gs.particles.shear_ids.cpu(), cs.particles.shear_ids) or \
+                not torch.equal(gd.n_dem_sub.cpu(), cd_.n_dem_sub):
+            raise AssertionError(f"small case ({label}): spring keys or substep counts differ")
+        if int((cs.particles.shear_xi.abs().sum(-1) > 0).sum()) == 0:
+            raise AssertionError(f"small case ({label}): no spring is loaded")
+        fields += [("angvel", gs.particles.angvel, cs.particles.angvel),
+                   ("shear_xi", gs.particles.shear_xi, cs.particles.shear_xi)]
     worst = 0.0
-    for name, g, c in (("u", gs.fluid.u, cs.fluid.u), ("p", gs.fluid.p, cs.fluid.p),
-                       ("alpha", gs.fluid.alpha, cs.fluid.alpha),
-                       ("pos", gs.particles.pos, cs.particles.pos),
-                       ("vel", gs.particles.vel, cs.particles.vel)):
+    for name, g, c in fields:
         rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
         worst = max(worst, rel)
         if not rel <= 1e-3:
             raise AssertionError(f"small case ({label}): {name} on the GPU differs from "
                                  f"the CPU path by {rel:.3e} of its scale")
-    print(f"small case 16^3/400 ({label}), 4 steps: GPU (kernels) vs CPU (plain) worst "
+    print(f"small case 16^3/{n} ({label}), 4 steps: GPU (kernels) vs CPU (plain) worst "
           f"relative difference {worst:.3e}", flush=True)
 
 
@@ -866,8 +934,19 @@ def settling_phase(device, card, steps=60):
           f"{read_launches()['rolls_deposit']}", flush=True)
 
 
+def spring_report(state, d):
+    """The `--yade-physics` slice's own numbers: the substep count per step
+    and the springs loaded at the end."""
+    ps = state.particles
+    return (f"n_eff per step {d['n_dem_sub'].tolist()}, nonzero springs "
+            f"{int((ps.shear_xi.abs().sum(-1) > 0).sum())} of {ps.shear_xi.shape[0]} x "
+            f"{ps.shear_xi.shape[1]} slots, wall springs "
+            f"{int((ps.shear_wall.abs().sum(-1) > 0).sum())}")
+
+
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -895,8 +974,8 @@ def main() -> int:
     kern = {"window_exchange": window_kernel_phase(cfg, device)}
     e = window_kernel_phase(cfg, device, extras=True)
     print(f"window_exchange (torque, added mass): kernel {e['ms']:.4f} ms "
-          f"({e['device_ms']:.4f} ms device only), plain {e['plain_ms']:.4f} ms [{smi}]",
-          flush=True)
+          f"({e['device_ms']:.4f} ms device only), plain {e['plain_ms']:.4f} ms, bound "
+          f"{e['bound_ms']:.4f} ms ({e['bound_by']}) [{smi}]", flush=True)
     kern.update(planes_kernel_phase(pcfg, device))
     capacity_phase(cfg, pcfg, device, smi)
     kern["rolls_deposit"] = rolls_kernel_phase(
@@ -913,6 +992,10 @@ def main() -> int:
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
               f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} "
               f"ms [{smi}]", flush=True)
+    print(f"dynwin_staging, profiler kernel time / device-only bmm: prototype shape "
+          f"{proto['profiler_ms']:.4f} / {proto['library_device_ms']:.4f} ms, window shape "
+          f"{kern['dynwin_staging']['profiler_ms']:.4f} / "
+          f"{kern['dynwin_staging']['library_device_ms']:.4f} ms [{smi}]", flush=True)
 
     # each path's launches, counted from 0 just before it and read just after
     launches = {}
@@ -922,6 +1005,10 @@ def main() -> int:
     launches["planes_fused"] = runs["planes_fused"]
     stage_phase(cfg, device, smi, "window slice")
     stage_phase(pcfg, device, smi, "planes slice")
+    ycfg = yade_physics_config(cfg)
+    slice_phase(ycfg, device, smi, "yade-physics slice", ["window_exchange"], timed_runs=3,
+                report=spring_report)
+    stage_phase(ycfg, device, smi, "yade-physics slice")
     runs, _ = slice_phase(planes_config(cfg, fused_planes=False), device, smi,
                           "two-kernel planes slice", ["planes_interp", "planes_deposit"],
                           timed_runs=0)
@@ -963,6 +1050,8 @@ def main() -> int:
     small_check(device, dataclasses.replace(with_use_pallas(picfg), grid=grid16,
                                             solid=box_solid(grid16.shape, (5, 6, 4), (9, 10, 8))),
                 "PISO, box obstacle, use_pallas")
+    small_check(device, yade_physics_config(bench_config(16)), "yade-physics, loaded springs",
+                n=500, particles=closing_pairs)
 
     sources = {"window_exchange": ("window_exchange.cu", JAX_OPS + "coupling_window.py:162"),
                "planes_fused": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
@@ -978,6 +1067,8 @@ def main() -> int:
         src, replaces = sources[name]
         entries.append({"name": name, "route": "cuda", "source": PORT_CSRC + src,
                         "replaces": replaces, "launches": launches[name], **e})
+    print(f"chip_smoke: every check passed in {time.perf_counter() - t_start:.1f} s [{smi}]",
+          flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

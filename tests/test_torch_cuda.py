@@ -659,3 +659,61 @@ def test_dynwin_kernel_matches_plain(cuda, shape):
     _assert_channels_close(dyn.reshape(dyn.shape[0], -1)[live],
                            plain.reshape(plain.shape[0], -1)[live])
     assert not dyn.reshape(dyn.shape[0], -1)[~live].any()
+
+
+def _dynwin_case(case):
+    """Seeded B7 inputs for one edge case: (dat, nch, ny, nz, w_chunk); rows
+    past each plane's count are y = -1, so dynamic must equal static."""
+    rng = np.random.RandomState(11)
+    nxl, ny, nz, W, w_chunk = 6, 100, 8, 512, 64
+    if case == "nz_not_mult_4":
+        nz = 7
+    elif case == "w_not_mult_256":
+        W, w_chunk = 384, 128
+    elif case == "wide_ny":           # y bands past the 1024 a block may own
+        nxl, ny, nz, W = 300, 3000, 1, 128
+    counts = rng.randint(1, W + 1, nxl)
+    counts[1] = 0                     # a plane with no rows
+    counts[2] = W                     # a full plane
+    dat = np.zeros((nxl, 2, W), np.float32)
+    dat[:, 0] = rng.randn(nxl, W)
+    dat[:, 1] = rng.randint(0, ny, (nxl, W))
+    if case == "one_y":               # 32-way collisions in every warp step
+        dat[:, 0] = np.abs(dat[:, 0])
+        dat[:, 1] = 5.0
+    if case == "y_outside":
+        dat[:, 1, ::3] = rng.choice([-7.0, -2.0, ny, ny + 3.0, 1e6], (nxl, len(range(0, W, 3))))
+    for i, c in enumerate(counts):
+        dat[i, 1, c:] = -1.0
+    nch = np.ceil(counts / w_chunk).astype(np.int32)
+    if case == "nch_out_of_range":
+        nch[1] = -3                   # no rows either way
+        nch[2] = W // w_chunk + 5     # clamped to the static bound
+    return dat, nch, ny, nz, w_chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ny_not_mult_32", "nz_not_mult_4", "w_not_mult_256", "one_y",
+                                  "y_outside", "nch_out_of_range", "wide_ny"])
+def test_dynwin_kernel_edge_cases(cuda, case):
+    """B7 on edge cases (each holds an empty plane and a full one): dynamic
+    equals static bit for bit, two launches are bit-identical, and both
+    stay within 1e-5 of each plane's scale of the plain version (exactly
+    zero where it is zero)."""
+    dat, nch, ny, nz, w_chunk = _dynwin_case(case)
+    dat, nch = torch.as_tensor(dat, device=cuda), torch.as_tensor(nch, device=cuda)
+    args = (dat, nch, ny, nz, w_chunk)
+    before = dw.stage_planes.launches
+    dyn = dw.stage_planes(*args, True)
+    static = dw.stage_planes(*args, False)
+    again = dw.stage_planes(*args, True)
+    torch.cuda.synchronize()
+    assert dw.stage_planes.launches == before + 3
+    assert torch.equal(dyn, static) and torch.equal(dyn, again)
+    plain = dw.stage_planes_reference(*args, True)
+    assert torch.equal(plain, dw.stage_planes_reference(*args, False))
+    flat, ref = dyn.reshape(dyn.shape[0], -1), plain.reshape(plain.shape[0], -1)
+    live = ref.abs().amax(-1) > 0
+    assert bool(live.any()) and not bool(live[1])
+    _assert_channels_close(flat[live], ref[live])
+    assert not flat[~live].any()

@@ -147,8 +147,8 @@ def test_case_config_from_and_unported_options_raise():
     assert isinstance(port, tcd.CaseConfig)
     assert isinstance(port.dem.params, tdem.ContactParams)
     assert _plain(port) == _plain(cfg)
-    for bad in (dataclasses.replace(port, dem=tdem.DEMConfig(dynamic_substeps=True)),
+    for bad in (dataclasses.replace(port, pimple=tpm.PIMPLEConfig(implicit_diffusion=True)),
                 dataclasses.replace(port, coupling=tcp.CouplingConfig(exchange="slots")),
-                dataclasses.replace(port, dem=tdem.DEMConfig(shear_history=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A1[123]"):
+                dataclasses.replace(port, turbulence=ttb.TurbulenceConfig(model="Smagorinsky"))):
+        with pytest.raises(NotImplementedError, match="ROADMAP A1[23]"):
             tcd.make_scan_fn(bad, 1)

@@ -5,16 +5,23 @@ One coupled step: Courant number and adaptive dt, the coupling inputs,
 the exchange (Gaussian: sparse, window or planes, the sparse one in
 particle chunks under ``particle_chunks > 1``, the planes one in x-slabs
 under ``planes_chunks > 1``; or the point-force one), the DEM substeps (on
-the frozen Verlet list, or on one list built per step, or on all pairs),
-then the fluid: PISO, or the turbulence correction and PIMPLE, both with
-the masked-cell obstacles of ``CaseConfig.solid`` (their masks built once
-per device); then the diagnostics.
+the frozen Verlet list, on a persistent list rebuilt when the drift since
+its build eats the skin margin, on one list built per step, or on all
+pairs; with the tangential spring history under ``shear_history``, and a
+substep count that follows the Rayleigh critical dt under
+``dynamic_substeps``, a zero-dt tail up to ``n_dem_substeps``), then the
+fluid: PISO, or the turbulence correction and PIMPLE, both with the
+masked-cell obstacles of ``CaseConfig.solid`` (their masks built once per
+device); then the diagnostics. The adaptive fluid dt is clamped to
+``n_dem_substeps`` critical dts under ``enforce_critical_dt`` or
+``dynamic_substeps``.
 `make_scan_fn` runs the steps as a Python loop, in chunks of [one
 Verlet-list rebuild -> K frozen-list steps] under ``list_reuse``, and
 stacks the per-step diagnostics along a leading axis.
 
-Not ported yet: the slots exchange (ROADMAP A12), the per-step conditional
-list rebuild, shear history and dynamic substeps (A11).
+Not ported yet: the slots exchange (ROADMAP A12), implicit diffusion and
+the Smagorinsky and kEpsilon closures (A13); each raises before the first
+step.
 """
 
 from __future__ import annotations
@@ -99,15 +106,18 @@ class CaseConfig:
 
 
 def _check_supported(cfg: CaseConfig) -> None:
-    """Raise for the configurations the port does not run yet."""
+    """Raise for the configurations the port does not run yet, before the
+    first step."""
     if cfg.solver not in ("piso", "pimple"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
     _check_exchange(cfg.coupling)
-    d = cfg.dem
-    if d.shear_history or d.dynamic_substeps or d.enforce_critical_dt:
-        raise NotImplementedError(
-            "shear history / dynamic substeps / critical-dt clamp: "
-            "not ported yet (ROADMAP A11)")
+    if cfg.solver == "pimple":
+        if cfg.pimple.implicit_diffusion:
+            raise NotImplementedError(
+                "PIMPLEConfig.implicit_diffusion: not ported yet (ROADMAP A13)")
+        if cfg.turbulence.model in ("Smagorinsky", "kEpsilon"):
+            raise NotImplementedError(
+                f"turbulence model {cfg.turbulence.model!r}: not ported yet (ROADMAP A13)")
 
 
 def _check_exchange(c: cp.CouplingConfig) -> None:
@@ -165,12 +175,14 @@ def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
         prev_alpha=fs.alpha)
 
 
-def _rebuild(particles: ParticleState, cfg: CaseConfig) -> ParticleState:
+def _rebuild(particles: ParticleState, cfg: CaseConfig, return_overflow: bool = False):
     """Fresh Verlet list; its reference positions are a copy of pos, never
-    an alias, so the staleness test reads the drift of later updates."""
-    nbr = demod.build_neighbor_list(particles.pos, particles.active, cfg.grid,
-                                    cfg.dem, cfg.r_max)
-    return particles._replace(nbr=nbr, nbr_ref_pos=particles.pos.clone())
+    an alias, so the staleness test reads the drift of later updates. With
+    ``return_overflow`` also the build's drop count."""
+    nbr, ov = demod.build_neighbor_list(particles.pos, particles.active, cfg.grid,
+                                        cfg.dem, cfg.r_max, return_overflow=True)
+    particles = particles._replace(nbr=nbr, nbr_ref_pos=particles.pos.clone())
+    return (particles, ov) if return_overflow else particles
 
 
 def initialize_state(fluid: FluidState, particles: ParticleState,
@@ -187,13 +199,24 @@ def initialize_state(fluid: FluidState, particles: ParticleState,
         # invariants every step keeps
         m = cfg.obstacle_masks(dev)
         fluid = fluid._replace(u=ob.mask_u(fluid.u, m), phi=ob.mask_flux(fluid.phi, m))
+    if cfg.dem.shear_history and particles.shear_xi is None:
+        # the springs ride the per-substep contact list: the refined
+        # compaction's width when it is on
+        d = cfg.dem
+        m_eff = d.refined_neighbors if 0 < d.refined_neighbors < d.max_neighbors \
+            else d.max_neighbors
+        sh = demod.make_shear_state(particles.n_capacity, m_eff, dtype=particles.pos.dtype,
+                                    device=dev)
+        particles = particles._replace(shear_xi=sh.xi, shear_ids=sh.ids,
+                                       shear_wall=sh.xi_wall)
     if cfg.dem.list_reuse and particles.nbr is None:
         if cfg.dem.neighbor != "cells":
             raise ValueError("list_reuse requires neighbor='cells'")
         particles = _rebuild(particles, cfg)
     if cfg.dem.carry_contact and particles.contact_f is None:
-        if cfg.dem.contact_mode != "substep":
-            raise ValueError("carry_contact requires contact_mode='substep'")
+        if cfg.dem.contact_mode != "substep" or cfg.dem.shear_history:
+            raise ValueError("carry_contact requires contact_mode='substep' and no "
+                             "shear_history")
         fc0, tc0 = demod.contact_forces(
             particles.pos, particles.vel, particles.angvel, particles.radius,
             particles.active, cfg.grid, cfg.dem, cfg.r_max, nbr=particles.nbr)
@@ -214,10 +237,16 @@ def initialize_state(fluid: FluidState, particles: ParticleState,
 def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
                  frozen_list: bool = False,
                  lite_diag: bool = False) -> Tuple[SimState, StepDiagnostics]:
-    """Advance the coupled system one fluid time step. With a persistent
-    Verlet list only the frozen form runs (`make_scan_fn` rebuilds it per
-    chunk); particles that drifted past the skin margin since the rebuild
-    are counted as contact overflow."""
+    """Advance the coupled system one fluid time step.
+
+    With a persistent Verlet list (``list_reuse``) and ``frozen_list``
+    (`make_scan_fn` rebuilds it per chunk) the list is used as it is and
+    particles that drifted past the skin margin since the rebuild count as
+    contact overflow. Without ``frozen_list`` the list is rebuilt when the
+    largest drift since its build reaches the margin (never with
+    ``list_margin_factor < 0``): the JAX package decides that inside its
+    program (`lax.cond`); here the decision is one host read, so the step
+    synchronises with the card once."""
     from ..parallel.ctx import LOCAL
     ctx = ctx if ctx is not None else LOCAL
     _check_supported(cfg)
@@ -237,6 +266,11 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
         nut_max = ctx.max(torch.amax(tb.nut)) if cfg.solver == "pimple" else 0.0
         dt_diff = diffusive_dt_bound(grid, tp.nu, nut_max)
         dt = new_dt(co_max, state.dt, cfg.time, dt_diff=dt_diff)
+        if cfg.dem.enforce_critical_dt or cfg.dem.dynamic_substeps:
+            # DEM stability: dt / n_dem_substeps <= the Rayleigh critical dt
+            # (with dynamic_substeps only the backstop past the static max)
+            dt_c = ctx.min(demod.critical_dt_dynamic(ps.radius, ps.active, cfg.dem.params))
+            dt = torch.minimum(dt, cfg.n_dem_substeps * dt_c)
     else:
         dt = state.dt
 
@@ -247,34 +281,55 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
 
     # 4. DEM substeps under the hydro force of this exchange
     n_sub = cfg.n_dem_substeps
-    dt_dem = dt / n_sub
+    if cfg.dem.dynamic_substeps:
+        # n_eff = ceil(dt / dt_c) substeps of dt / n_eff, then a zero-dt tail
+        # up to the static n_sub (no host read of n_eff)
+        dt_c = ctx.min(demod.critical_dt_dynamic(ps.radius, ps.active, cfg.dem.params))
+        n_eff = torch.clamp(torch.ceil(dt / dt_c).to(torch.int32), 1, n_sub)
+        dt_dem = dt / n_eff.to(dt.dtype)
+        dt_seq = torch.where(torch.arange(n_sub, device=dev) < n_eff, dt_dem, zero)
+    else:
+        n_eff = torch.tensor(n_sub, dtype=torch.int32, device=dev)
+        dt_dem = dt / n_sub
+        dt_seq = None
     hydro = demod.DEMForces(cres.force, cres.torque)
     nbr = None
     n_list_overflow = izero
     if cfg.dem.list_reuse:
+        if cfg.dem.neighbor != "cells":
+            raise ValueError("list_reuse requires neighbor='cells'")
         if ps.nbr is None:
             raise ValueError("initialize_state builds the first Verlet list")
-        if not frozen_list and cfg.dem.list_margin_factor >= 0:
-            raise NotImplementedError(
-                "per-step conditional Verlet rebuild: not ported yet "
-                "(ROADMAP A11); use make_scan_fn with list_rebuild_steps > 0")
         bin_size = demod.effective_bin_size(grid, cfg.dem, cfg.r_max)
         margin = cfg.dem.list_margin_factor * (bin_size - 2.0 * cfg.r_max)
-        nbr = ps.nbr
+        if not (margin > 0.0 or cfg.dem.list_margin_factor < 0):
+            raise ValueError(f"list_reuse needs skin slack: effective bin size {bin_size:g} "
+                             f"<= 2*r_max {2 * cfg.r_max:g}")
         if frozen_list:
             disp = demod.drift_since(ps.pos, ps.nbr_ref_pos, ps.active, grid,
                                      cfg.dem.periodic)
             n_list_overflow = torch.sum((disp >= margin).to(torch.int32))
-    if cfg.dem.carry_contact:
+        elif cfg.dem.list_margin_factor >= 0 and bool(torch.amax(demod.drift_since(
+                ps.pos, ps.nbr_ref_pos, ps.active, grid, cfg.dem.periodic)) >= margin):
+            ps, n_list_overflow = _rebuild(ps, cfg, return_overflow=True)
+        nbr = ps.nbr
+    if cfg.dem.shear_history:
+        pos, vel, angvel, n_overflow, sh = demod.dem_substeps(
+            ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
+            cfg.dem, dt_dem, n_sub, cfg.r_max,
+            shear=demod.ShearState(ps.shear_xi, ps.shear_ids, ps.shear_wall),
+            pid=ps.pid, nbr=nbr, dt_seq=dt_seq)
+        ps = ps._replace(shear_xi=sh.xi, shear_ids=sh.ids, shear_wall=sh.xi_wall)
+    elif cfg.dem.carry_contact and cfg.dem.contact_mode == "substep":
         carried = None if ps.contact_f is None else (ps.contact_f, ps.contact_t)
         pos, vel, angvel, n_overflow, fc, tc = demod.dem_substeps(
             ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
-            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, carried=carried)
+            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, carried=carried, dt_seq=dt_seq)
         ps = ps._replace(contact_f=fc, contact_t=tc)
     else:
         pos, vel, angvel, n_overflow = demod.dem_substeps(
             ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
-            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr)
+            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, dt_seq=dt_seq)
     n_overflow = n_overflow + n_list_overflow
     ps = ps._replace(pos=pos, vel=vel, angvel=angvel)
 
@@ -314,7 +369,7 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
         n_coupling_overflow=ctx.sum(torch.as_tensor(cres.n_overflow, dtype=torch.int32,
                                                      device=dev)),
         n_shard_overflow=izero,
-        n_dem_sub=torch.tensor(n_sub, dtype=torch.int32, device=dev),
+        n_dem_sub=n_eff,
     )
     new_state = SimState(fluid=fs2, particles=ps, turb=tb2, t=state.t + dt,
                          dt=dt, step=state.step + 1)
@@ -329,8 +384,10 @@ def make_scan_fn(cfg: CaseConfig, n_steps: int, donate: bool = False):
     """A callable running n_steps coupled steps: state -> (state, diags),
     the diagnostics stacked along a leading step axis. With
     ``dem.list_rebuild_steps = K > 0`` and ``list_reuse`` the steps run in
-    chunks of [one Verlet-list rebuild -> K frozen-list steps]. ``donate``
-    has no counterpart in eager PyTorch and is accepted and ignored."""
+    chunks of [one Verlet-list rebuild -> K frozen-list steps]; the shear
+    springs, like the rest of the particle state, carry from chunk to
+    chunk. ``donate`` has no counterpart in eager PyTorch and is accepted
+    and ignored."""
     _check_supported(cfg)
     K = cfg.dem.list_rebuild_steps
     chunked = cfg.dem.list_reuse and K > 0 and cfg.dem.neighbor == "cells"

@@ -1,13 +1,15 @@
 """Discrete-element engine (port of `yade_openfoam_coupling_tpu/ops/dem.py`):
-linear spring-dashpot contacts with Coulomb-capped viscous friction, all
-pairs or a Verlet candidate list built from uniform hash bins (persistent,
-or one per `dem_substeps` call), wall contacts against the box faces, and
-velocity-Verlet substeps, optionally with the contact force carried across
-calls.
-
-Not ported yet (ROADMAP A11): `cell_list_contact_forces`,
-``list_rebuild_every``, shear history, dynamic substeps,
-`contact_mode="step"`.
+linear spring-dashpot contacts with Coulomb-capped viscous friction, or
+with the tangential spring history of Yade's
+Law2_ScGeom_FrictPhys_CundallStrack (`ShearState`, carried across list
+rebuilds by partner key); all pairs, a fixed-capacity cell list, or a
+Verlet candidate list built from uniform hash bins (persistent, once per
+`dem_substeps` call, or every ``list_rebuild_every`` substeps); wall
+contacts against the box faces; and velocity-Verlet substeps with the
+contact force evaluated every substep or held for the step
+(``contact_mode``), optionally carried across calls, with a per-substep
+dt sequence whose zero-dt tail changes nothing (dynamic substeps), and the
+Rayleigh critical dt of the current radii (`critical_dt_dynamic`).
 """
 
 from __future__ import annotations
@@ -20,8 +22,6 @@ import numpy as np
 import torch
 
 from .grid import Grid
-
-_A11 = "not ported yet (ROADMAP A11)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +167,95 @@ def _pair_force_cm(dx, vi, vj, wi, wj, ri, rj, mi, mj,
     return f, torque
 
 
+class ShearState(NamedTuple):
+    """Per-(particle, neighbour-slot) tangential spring history, keyed by
+    partner (its pid when pids are given, else its index; -1 = empty
+    slot), carried across list rebuilds by key match; one wall spring per
+    axis."""
+
+    xi: torch.Tensor        # (N, M, 3) tangential spring displacement
+    ids: torch.Tensor       # (N, M) int32 partner keys (-1 = empty)
+    xi_wall: torch.Tensor   # (N, 3, 3) wall-contact springs, one per axis
+
+
+def make_shear_state(n: int, max_neighbors: int, dtype=torch.float32,
+                     device=None) -> ShearState:
+    return ShearState(
+        xi=torch.zeros((n, max_neighbors, 3), dtype=dtype, device=device),
+        ids=torch.full((n, max_neighbors), -1, dtype=torch.int32, device=device),
+        xi_wall=torch.zeros((n, 3, 3), dtype=dtype, device=device))
+
+
+def shear_keys(nbr: torch.Tensor, n_valid: int,
+               pid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Partner keys of a neighbour-id array: pid[nbr] when pids are given,
+    else the index; -1 for empty slots (ids >= n_valid)."""
+    empty = torch.full((), -1, dtype=torch.int32, device=nbr.device)
+    if pid is None:
+        return torch.where(nbr >= n_valid, empty, nbr)
+    pid_ext = torch.cat([pid, empty[None]])
+    keys = pid_ext[torch.clamp(nbr, max=pid.shape[0]).to(torch.int64)]
+    return torch.where(nbr >= n_valid, empty, keys)
+
+
+def carry_shear(old: ShearState, new_keys: torch.Tensor) -> torch.Tensor:
+    """Each new slot's spring from the old slot with the same partner key,
+    zero where none matches: the reference's dense (N, M_new, M_old)
+    one-hot product (full f32, TF32 off at package entry, so a matched
+    spring is carried exactly)."""
+    match = ((new_keys[:, :, None] == old.ids[:, None, :]) & (old.ids[:, None, :] >= 0)
+             & (new_keys[:, :, None] >= 0))
+    return torch.einsum("nmo,noc->nmc", match.to(old.xi.dtype), old.xi)
+
+
+def _pair_force_shear_cm(dx, vi, vj, wi, wj, ri, rj, mi, mj,
+                         p: ContactParams, valid, xi, dt):
+    """Spring-dashpot normal force and the Coulomb-capped tangential HISTORY
+    spring with slip feedback (the reference's `_pair_force_shear`, op for
+    op) in channel-major form: vectors, ``xi`` included, are (x, y, z)
+    tuples of (M, n) component arrays. -> (force on i, torque on i,
+    updated xi), each a triple."""
+    dist = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
+    overlap = ri + rj - dist
+    touching = valid & (overlap > 0.0) & (dist > 1e-12)
+    dist_safe = torch.where(dist > 1e-12, dist, torch.ones_like(dist))
+    n = tuple(c / dist_safe for c in dx)
+
+    ci = tuple(-ri * c for c in n)
+    cj = tuple(rj * c for c in n)
+    v_rel = tuple((vi[k] + wxci) - (vj[k] + wxcj)
+                  for k, (wxci, wxcj) in enumerate(
+                      zip(_cross_cm(wi, ci), _cross_cm(wj, cj))))
+    v_n = v_rel[0] * n[0] + v_rel[1] * n[1] + v_rel[2] * n[2]
+    v_t = tuple(v_rel[k] - v_n * n[k] for k in range(3))
+
+    m_eff = (mi * mj) / torch.clamp(mi + mj, min=1e-30)
+    cn = _normal_damping(p.kn, m_eff, p.restitution)
+    f_n_mag = torch.clamp(p.kn * overlap - cn * v_n, min=0.0)
+    f_n = tuple(f_n_mag * c for c in n)
+
+    # the stored spring rotated into the current tangent plane, plus this
+    # step's tangential sliding
+    xi_n = xi[0] * n[0] + xi[1] * n[1] + xi[2] * n[2]
+    xi_acc = tuple(xi[k] - xi_n * n[k] + v_t[k] * dt for k in range(3))
+    kt = p.kt_over_kn * p.kn
+    ct = _normal_damping(kt, m_eff, p.restitution)
+    f_t_trial = tuple(-kt * xi_acc[k] - ct * v_t[k] for k in range(3))
+    f_t_mag = torch.sqrt(f_t_trial[0] * f_t_trial[0] + f_t_trial[1] * f_t_trial[1]
+                         + f_t_trial[2] * f_t_trial[2])
+    cap = p.friction * f_n_mag
+    over = f_t_mag > torch.clamp(cap, min=1e-30)
+    scale = torch.where(over, cap / torch.clamp(f_t_mag, min=1e-30), torch.ones_like(cap))
+    f_t = tuple(c * scale for c in f_t_trial)
+    # slip: the spring relaxes to the Coulomb cone; sticking keeps it
+    zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    xi_new = tuple(torch.where(touching, torch.where(over, -f_t[k] / kt, xi_acc[k]), zero)
+                   for k in range(3))
+    f = tuple(torch.where(touching, f_n[k] + f_t[k], zero) for k in range(3))
+    torque = tuple(torch.where(touching, c, zero) for c in _cross_cm(ci, f_t))
+    return f, torque, xi_new
+
+
 def allpairs_contact_forces(pos, vel, angvel, radius, active, grid: Grid, cfg: DEMConfig):
     """Exact O(N^2) contact sums: every pair's force in (N, N) component
     arrays, summed over partners."""
@@ -209,7 +298,110 @@ def _check_periodic_bins(dims, cfg: DEMConfig) -> None:
             raise ValueError(
                 f"periodic axis {a} has only {dims[a]} DEM hash bins "
                 f"(domain < 6*r_max*(1+skin)): neighbor bins would alias and "
-                f"double-count contacts.")
+                f"double-count contacts. Use neighbor='allpairs' for this case.")
+
+
+def _dem_cell_grid(grid: Grid, r_max: float):
+    """Hash-cell counts and sizes: cells at least 2*r_max wide."""
+    dims, sizes = [], []
+    for a in range(3):
+        L = grid.lengths[a]
+        n = max(1, int(np.floor(L / max(2.0 * r_max, 1e-12))))
+        dims.append(n)
+        sizes.append(L / n)
+    return tuple(dims), tuple(sizes)
+
+
+def _list_forces(cand, self_idx, pos, vel, angvel, radius, active, grid: Grid,
+                 cfg: DEMConfig, xi=None, dt=None):
+    """Pair forces of every particle against its (N, K) candidate ids (N =
+    empty): one 11-channel row gather of N * K rows, transposed once to
+    (11, K, N) so that every pair formula runs on (K, N) component arrays;
+    with ``xi`` (N, K, 3) the history spring, transposed the same way, and
+    its update as a third output. ``self_idx`` (N, 1) masks a particle's own
+    id where the candidates can hold it."""
+    N = pos.shape[0]
+    p = cfg.params
+    data = torch.cat([pos, vel, angvel, radius[:, None],
+                      active.to(pos.dtype)[:, None]], dim=-1)
+    data = torch.cat([data, torch.zeros((1, 11), dtype=data.dtype, device=data.device)])
+    djT = data[cand.to(torch.int64)].permute(2, 1, 0)   # (11, K, N)
+    pos_j = (djT[0], djT[1], djT[2])
+    vel_j = (djT[3], djT[4], djT[5])
+    ang_j = (djT[6], djT[7], djT[8])
+    rad_j, act_j = djT[9], djT[10] > 0.5
+    m_j = particle_mass(torch.clamp(rad_j, min=1e-12), p.rho_p)
+    m_b = particle_mass(radius, p.rho_p)
+    valid = act_j & active[None, :] & (cand.T != N)
+    if self_idx is not None:
+        valid = valid & (cand.T != self_idx.T)
+    L = grid.lengths
+    dx = []
+    for c in range(3):
+        d = pos[:, c][None, :] - pos_j[c]
+        if cfg.periodic[c]:
+            d = d - L[c] * torch.round(d / L[c])
+        dx.append(d)
+    args = (tuple(dx),
+            tuple(vel[:, c][None, :] for c in range(3)), vel_j,
+            tuple(angvel[:, c][None, :] for c in range(3)), ang_j,
+            radius[None, :], rad_j, m_b[None, :], m_j, p, valid)
+    if xi is None:
+        f, t = _pair_force_cm(*args)
+    else:
+        xiT = xi.permute(2, 1, 0)                       # (3, K, N)
+        f, t, xi_n = _pair_force_shear_cm(*args, (xiT[0], xiT[1], xiT[2]), dt)
+    fs = torch.stack([torch.sum(c, dim=0) for c in f], dim=-1)
+    ts = torch.stack([torch.sum(c, dim=0) for c in t], dim=-1)
+    if xi is None:
+        return fs, ts
+    return fs, ts, torch.stack(xi_n).permute(2, 1, 0).contiguous()
+
+
+def cell_list_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
+                             cfg: DEMConfig, r_max: float):
+    """O(N * 27 * capacity) contact forces through uniform hash cells at
+    least 2 r_max wide: a stable sort by cell, a (ncell + 1, cap) table
+    (particles past ``cell_capacity`` dropped; N = empty), and each
+    particle's 27 neighbour cells' slots as its candidates."""
+    N = pos.shape[0]
+    cap = cfg.cell_capacity
+    dev = pos.device
+    dims, sizes = _dem_cell_grid(grid, r_max)
+    _check_periodic_bins(dims, cfg)
+    ncell = dims[0] * dims[1] * dims[2]
+
+    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=dev)
+    csz = torch.tensor(sizes, dtype=pos.dtype, device=dev)
+    nvec = torch.tensor(dims, dtype=torch.int32, device=dev)
+    ijk = torch.floor((pos - origin) / csz).to(torch.int32)
+    ijk = torch.minimum(torch.clamp(ijk, min=0), nvec - 1)
+    cell = ijk[:, 0] * (dims[1] * dims[2]) + ijk[:, 1] * dims[2] + ijk[:, 2]
+    cell = torch.where(active, cell, ncell)          # inactive: the scrap cell
+
+    order = torch.argsort(cell, stable=True)
+    cell_sorted = cell[order]
+    idx_in_cell = rank_in_sorted_segments(cell_sorted)
+    keep = idx_in_cell < cap
+    slot = cell_sorted.to(torch.int64) * cap + torch.clamp(idx_in_cell, max=cap - 1)
+    table = torch.full(((ncell + 1) * cap,), N, dtype=torch.int32, device=dev)
+    table[torch.where(keep, slot, (ncell + 1) * cap - 1)] = torch.where(
+        keep, order.to(torch.int32), N)
+    table = table.reshape(ncell + 1, cap)
+
+    offs = torch.tensor(np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
+                                             indexing="ij"), -1).reshape(-1, 3),
+                        dtype=torch.int32, device=dev)
+    nb = ijk[:, None, :] + offs[None, :, :]          # (N, 27, 3)
+    per = torch.tensor(cfg.periodic, device=dev)
+    nb_wrapped = torch.remainder(nb, nvec)
+    in_rng = torch.all(((nb >= 0) & (nb < nvec)) | per, dim=-1)
+    nb_cell = (nb_wrapped[..., 0] * (dims[1] * dims[2]) + nb_wrapped[..., 1] * dims[2]
+               + nb_wrapped[..., 2])
+    nb_cell = torch.where(in_rng, nb_cell, ncell)
+    cand = table[nb_cell.to(torch.int64)].reshape(N, 27 * cap)
+    self_idx = torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+    return _list_forces(cand, self_idx, pos, vel, angvel, radius, active, grid, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -341,50 +533,18 @@ def build_neighbor_list(pos, active, grid: Grid, cfg: DEMConfig, r_max: float,
 
 def neighbor_contact_forces(nbr, pos, vel, angvel, radius, active, grid: Grid,
                             cfg: DEMConfig, xi=None, dt=None):
-    """Pair forces against a fixed candidate list: one 11-channel row
-    gather of N * M rows, transposed once to (11, M, N) so that every pair
-    formula runs on (M, N) component arrays."""
-    if xi is not None:
-        raise NotImplementedError(f"shear history: {_A11}")
-    N = pos.shape[0]
-    p = cfg.params
-    data = torch.cat([pos, vel, angvel, radius[:, None],
-                      active.to(pos.dtype)[:, None]], dim=-1)
-    data = torch.cat([data, torch.zeros((1, 11), dtype=data.dtype, device=data.device)])
-    djT = data[nbr.to(torch.int64)].permute(2, 1, 0)   # (11, M, N)
-    pos_j = (djT[0], djT[1], djT[2])
-    vel_j = (djT[3], djT[4], djT[5])
-    ang_j = (djT[6], djT[7], djT[8])
-    rad_j, act_j = djT[9], djT[10] > 0.5
-    m_j = particle_mass(torch.clamp(rad_j, min=1e-12), p.rho_p)
-    m_b = particle_mass(radius, p.rho_p)
-    valid = act_j & active[None, :] & (nbr.T != N)
-    L = grid.lengths
-    dx = []
-    for c in range(3):
-        d = pos[:, c][None, :] - pos_j[c]
-        if cfg.periodic[c]:
-            d = d - L[c] * torch.round(d / L[c])
-        dx.append(d)
-    f, t = _pair_force_cm(
-        tuple(dx),
-        tuple(vel[:, c][None, :] for c in range(3)), vel_j,
-        tuple(angvel[:, c][None, :] for c in range(3)), ang_j,
-        radius[None, :], rad_j,
-        m_b[None, :], m_j,
-        p, valid,
-    )
-    fs = torch.stack([torch.sum(c, dim=0) for c in f], dim=-1)
-    ts = torch.stack([torch.sum(c, dim=0) for c in t], dim=-1)
-    return fs, ts
+    """Pair forces against a fixed candidate list (`_list_forces`). With
+    ``xi`` (N, M, 3) and ``dt`` the tangential force is the history spring
+    and the updated springs are a third output."""
+    return _list_forces(nbr, None, pos, vel, angvel, radius, active, grid, cfg, xi, dt)
 
 
 def wall_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
                         cfg: DEMConfig, xi_wall=None, dt=None):
     """Contacts with the domain box faces on non-periodic wall axes
-    (spring-dashpot + Coulomb friction against infinite-mass planes)."""
-    if xi_wall is not None:
-        raise NotImplementedError(f"shear history: {_A11}")
+    (spring-dashpot + Coulomb friction against infinite-mass planes). With
+    ``xi_wall`` (N, 3, 3) and ``dt`` the tangential force is the history
+    spring, one per axis, and the updated springs are a third output."""
     p = cfg.params
     dev, dt_ = pos.device, pos.dtype
     m = particle_mass(radius, p.rho_p)
@@ -397,6 +557,7 @@ def wall_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
 
     f_total = torch.zeros_like(pos)
     t_total = torch.zeros_like(pos)
+    xi_out = None if xi_wall is None else xi_wall.clone()   # updated per axis
     for axis in range(3):
         if not cfg.wall_axes[axis] or cfg.periodic[axis]:
             continue
@@ -420,16 +581,33 @@ def wall_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
         v_surf = vel + _cross(angvel, c_vec)
         v_t = v_surf - (torch.sum(v_surf * n_vec, -1))[:, None] * n_vec
         cap = p.friction * f_n_mag
-        f_t = -ct[:, None] * v_t
-        f_t_mag = _norm3(f_t)
-        scale = torch.where(
-            f_t_mag > 1e-30,
-            torch.clamp(cap / torch.clamp(f_t_mag, min=1e-30), max=1.0), zero)
-        f_t = f_t * torch.where(touching, scale, zero)[:, None]
+        if xi_wall is None:
+            f_t = -ct[:, None] * v_t
+            f_t_mag = _norm3(f_t)
+            scale = torch.where(
+                f_t_mag > 1e-30,
+                torch.clamp(cap / torch.clamp(f_t_mag, min=1e-30), max=1.0), zero)
+            f_t = f_t * torch.where(touching, scale, zero)[:, None]
+        else:
+            # the wall normal is axis-aligned: drop the spring's normal part
+            xi_t = xi_out[:, axis].clone()
+            xi_t[:, axis] = 0.0
+            xi_acc = xi_t + v_t * dt
+            ct_t = _normal_damping(kt, m, p.restitution)     # m_eff = m
+            f_t_trial = -kt * xi_acc - ct_t[:, None] * v_t
+            f_t_mag = _norm3(f_t_trial)
+            over = f_t_mag > torch.clamp(cap, min=1e-30)
+            scale = torch.where(over, cap / torch.clamp(f_t_mag, min=1e-30),
+                                torch.ones_like(cap))
+            f_t = f_t_trial * torch.where(touching, scale, zero)[:, None]
+            xi_upd = torch.where(over[:, None], -f_t / kt, xi_acc)
+            xi_out[:, axis] = torch.where(touching[:, None], xi_upd, zero)
 
         f_total = f_total + (f_n_mag[:, None] * n_vec + f_t)
         t_total = t_total + _cross(c_vec, f_t)
-    return f_total, t_total
+    if xi_wall is None:
+        return f_total, t_total
+    return f_total, t_total, xi_out
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +626,7 @@ def contact_forces(pos, vel, angvel, radius, active, grid, cfg: DEMConfig,
     elif cfg.neighbor == "allpairs":
         fc, tc = allpairs_contact_forces(pos, vel, angvel, radius, active, grid, cfg)
     elif cfg.neighbor == "cells":
-        raise NotImplementedError(f"cell_list_contact_forces: {_A11}")
+        fc, tc = cell_list_contact_forces(pos, vel, angvel, radius, active, grid, cfg, r_max)
     else:
         raise ValueError(f"unknown neighbor mode {cfg.neighbor!r}")
     fw, tw = wall_contact_forces(pos, vel, angvel, radius, active, grid, cfg)
@@ -457,31 +635,30 @@ def contact_forces(pos, vel, angvel, radius, active, grid, cfg: DEMConfig,
 
 def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
                  grid: Grid, cfg: DEMConfig, dt_dem, n_sub: int, r_max: float,
-                 shear=None, pid=None, nbr=None,
+                 shear: Optional[ShearState] = None, pid=None, nbr=None,
                  carried: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  dt_seq=None):
     """Advance the DEM state n_sub velocity-Verlet substeps under a constant
-    hydro force. With a prebuilt Verlet list ``nbr`` it is used as it is
-    and n_overflow is 0 (the build that produced the list counted its own
-    drops); without one, ``neighbor="cells"`` builds one list for the call
-    and returns its overflow count, and ``"allpairs"`` uses all pairs.
-    Returns (pos, vel, angvel, n_overflow), plus the contact force/torque
-    of the last evaluation under ``cfg.carry_contact`` (the ``carried``
-    input of the next call)."""
-    if cfg.shear_history or shear is not None:
-        raise NotImplementedError(f"shear history: {_A11}")
-    if dt_seq is not None:
-        raise NotImplementedError(f"dynamic substeps: {_A11}")
-    if cfg.contact_mode != "substep":
-        raise NotImplementedError(f"contact_mode={cfg.contact_mode!r}: {_A11}")
+    hydro force. Returns (pos, vel, angvel, n_overflow); with
+    ``cfg.shear_history`` (``shear`` the previous ShearState, ``pid`` the
+    partner keys) also the updated ShearState; with ``cfg.carry_contact``
+    (substep mode) also the contact force/torque of the last evaluation
+    (the ``carried`` input of the next call).
+
+    With a prebuilt Verlet list ``nbr`` it is used as it is and n_overflow
+    is 0 (the build that produced the list counted its own drops); without
+    one, ``neighbor="cells"`` builds a list at the start of every chunk of
+    ``list_rebuild_every`` substeps (one chunk by default) and n_overflow is
+    the largest build's drop count, and ``"allpairs"`` uses all pairs.
+    ``contact_mode="step"`` holds each chunk's first contact force over the
+    chunk. ``dt_seq`` (n_sub,) gives every substep its own dt in place of
+    ``dt_dem``: a zero-dt substep leaves pos/vel/angvel bit-identical, and
+    also keeps the shear springs and the carried force of the last live
+    substep, as in the JAX package; no element is read on the host."""
     p = cfg.params
     dev = pos.device
-    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if nbr is None and cfg.neighbor == "cells":
-        if 0 < cfg.list_rebuild_every < n_sub:     # rebuilds inside the call
-            raise NotImplementedError(f"list_rebuild_every: {_A11}")
-        nbr, n_overflow = build_neighbor_list(pos, active, grid, cfg, r_max,
-                                              return_overflow=True)
+    N = pos.shape[0]
+    izero = torch.zeros((), dtype=torch.int32, device=dev)
     m = particle_mass(radius, p.rho_p)
     inertia = particle_inertia(radius, p.rho_p)
     g = torch.tensor(cfg.gravity, dtype=pos.dtype, device=dev)
@@ -503,31 +680,128 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
             return f
         return f * (1.0 - d * torch.sign(f * v))
 
-    def accel(pos_, vel_, ang_):
-        return contact_forces(pos_, vel_, ang_, radius, active, grid, cfg, r_max, nbr)
+    def accel(fc, tc, vel_, ang_):
+        return (damp(fc + f_grav + hydro.force, vel_) * inv_m,
+                damp(tc + hydro.torque, ang_) * inv_I)
 
-    carry_c = cfg.carry_contact
-    # a0 from the carried contact force (no evaluation) or from a fresh one
-    fc, tc = carried if carry_c and carried is not None else accel(pos, vel, angvel)
-    a = damp(fc + f_grav + hydro.force, vel) * inv_m
-    aw = damp(tc + hydro.torque, angvel) * inv_I
-    for _ in range(n_sub):
-        vel_h = vel + 0.5 * dt_dem * a
-        angvel_h = angvel + 0.5 * dt_dem * aw
-        pos_n = pos + dt_dem * vel_h
-        pos_n = torch.where(per, lo + _float_mod(pos_n - lo, L), pos_n)
-        fc, tc = accel(pos_n, vel_h, angvel_h)
-        a = damp(fc + f_grav + hydro.force, vel_h) * inv_m
-        aw = damp(tc + hydro.torque, angvel_h) * inv_I
-        pos = pos_n
-        vel = vel_h + 0.5 * dt_dem * a
-        angvel = angvel_h + 0.5 * dt_dem * aw
-    if carry_c:
-        return pos, vel, angvel, n_overflow, fc, tc
-    return pos, vel, angvel, n_overflow
+    def drift(pos_, vel_, ang_, a, aw, dt_):
+        """The first half of a substep: half-kick, drift, periodic wrap."""
+        vel_h = vel_ + 0.5 * dt_ * a
+        ang_h = ang_ + 0.5 * dt_ * aw
+        pos_n = pos_ + dt_ * vel_h
+        return torch.where(per, lo + _float_mod(pos_n - lo, L), pos_n), vel_h, ang_h
+
+    use_list = cfg.neighbor == "cells"
+    every = n_sub
+    if nbr is None and use_list and cfg.list_rebuild_every > 0:
+        every = min(cfg.list_rebuild_every, n_sub)
+    n_chunks, rem = divmod(n_sub, every)
+    if rem:
+        raise ValueError(f"n_sub={n_sub} not divisible by list_rebuild_every={every}")
+    masked = dt_seq is not None
+    dts = list(dt_seq.unbind(0)) if masked else [dt_dem] * n_sub
+    if len(dts) != n_sub:
+        raise ValueError(f"dt_seq has {len(dts)} entries for {n_sub} substeps")
+
+    def chunk_list(pos_):
+        if nbr is not None:
+            return nbr, izero
+        if use_list:
+            return build_neighbor_list(pos_, active, grid, cfg, r_max, return_overflow=True)
+        return None, izero
+
+    overflows = []
+    if cfg.shear_history:
+        if not (use_list and cfg.contact_mode == "substep"):
+            raise ValueError("shear_history requires neighbor='cells', contact_mode='substep'")
+        if shear is None:
+            raise ValueError("shear_history: pass the previous ShearState")
+
+        def eval_h(nbr_c, pos_, vel_, ang_, xi_, xw_, dt_):
+            fc, tc, xi2 = neighbor_contact_forces(nbr_c, pos_, vel_, ang_, radius, active,
+                                                  grid, cfg, xi_, dt_)
+            fw, tw, xw2 = wall_contact_forces(pos_, vel_, ang_, radius, active, grid, cfg,
+                                              xw_, dt_)
+            return (*accel(fc + fw, tc + tw, vel_, ang_), xi2, xw2)
+
+        for c in range(n_chunks):
+            nbr_c, ov = chunk_list(pos)
+            overflows.append(ov)
+            keys = shear_keys(nbr_c, N, pid)
+            # dt = 0: the force at the current state, springs projected only
+            a, aw, xi, xw = eval_h(nbr_c, pos, vel, angvel, carry_shear(shear, keys),
+                                   shear.xi_wall, 0.0)
+            for dt_ in dts[c * every:(c + 1) * every]:
+                pos, vel_h, ang_h = drift(pos, vel, angvel, a, aw, dt_)
+                a, aw, xi2, xw2 = eval_h(nbr_c, pos, vel_h, ang_h, xi, xw, dt_)
+                if masked:
+                    # a zero-dt substep keeps the springs of the last live one
+                    live = dt_ > 0
+                    xi2, xw2 = torch.where(live, xi2, xi), torch.where(live, xw2, xw)
+                xi, xw = xi2, xw2
+                vel = vel_h + 0.5 * dt_ * a
+                angvel = ang_h + 0.5 * dt_ * aw
+            shear = ShearState(xi, keys, xw)
+        return pos, vel, angvel, torch.stack(overflows).amax(), shear
+
+    if cfg.carry_contact and cfg.contact_mode == "substep":
+        if carried is not None:
+            fc, tc = carried
+        else:
+            nbr0 = nbr if nbr is not None or not use_list else build_neighbor_list(
+                pos, active, grid, cfg, r_max)
+            fc, tc = contact_forces(pos, vel, angvel, radius, active, grid, cfg, r_max, nbr0)
+        for c in range(n_chunks):
+            nbr_c, ov = chunk_list(pos)
+            overflows.append(ov)
+            # a0 from the carried contact force: no evaluation
+            a, aw = accel(fc, tc, vel, angvel)
+            for dt_ in dts[c * every:(c + 1) * every]:
+                pos, vel_h, ang_h = drift(pos, vel, angvel, a, aw, dt_)
+                fc2, tc2 = contact_forces(pos, vel_h, ang_h, radius, active, grid, cfg,
+                                          r_max, nbr_c)
+                if masked:
+                    # a zero-dt substep keeps the last live evaluation
+                    live = dt_ > 0
+                    fc2, tc2 = torch.where(live, fc2, fc), torch.where(live, tc2, tc)
+                fc, tc = fc2, tc2
+                a, aw = accel(fc, tc, vel_h, ang_h)
+                vel = vel_h + 0.5 * dt_ * a
+                angvel = ang_h + 0.5 * dt_ * aw
+        return pos, vel, angvel, torch.stack(overflows).amax(), fc, tc
+
+    for c in range(n_chunks):
+        nbr_c, ov = chunk_list(pos)
+        overflows.append(ov)
+        held = (contact_forces(pos, vel, angvel, radius, active, grid, cfg, r_max, nbr_c)
+                if cfg.contact_mode == "step" else None)
+
+        def forces(pos_, vel_, ang_):
+            return held if held is not None else contact_forces(
+                pos_, vel_, ang_, radius, active, grid, cfg, r_max, nbr_c)
+
+        a, aw = accel(*forces(pos, vel, angvel), vel, angvel)
+        for dt_ in dts[c * every:(c + 1) * every]:
+            pos, vel_h, ang_h = drift(pos, vel, angvel, a, aw, dt_)
+            a, aw = accel(*forces(pos, vel_h, ang_h), vel_h, ang_h)
+            vel = vel_h + 0.5 * dt_ * a
+            angvel = ang_h + 0.5 * dt_ * aw
+    return pos, vel, angvel, torch.stack(overflows).amax()
 
 
 def critical_dt(radius_min: float, params: ContactParams) -> float:
     """Rayleigh-style critical DEM time step: dt_c ~ sqrt(m_min/kn) * safety."""
     m_min = float(params.rho_p * (4.0 / 3.0) * np.pi * radius_min ** 3)
     return 0.2 * float(np.sqrt(m_min / params.kn))
+
+
+def critical_dt_dynamic(radius, active, params: ContactParams) -> torch.Tensor:
+    """`critical_dt` of the smallest active radius, as a 0-d tensor on the
+    radii's device (1.0 m when no particle is active): the bound the
+    coupled step clamps the adaptive fluid dt to and divides it by for the
+    dynamic substep count."""
+    inf = torch.full((), math.inf, dtype=radius.dtype, device=radius.device)
+    r_min = torch.amin(torch.where(active, radius, inf))
+    r_min = torch.where(torch.isfinite(r_min), r_min, torch.ones_like(r_min))
+    m_min = params.rho_p * (4.0 / 3.0) * math.pi * r_min ** 3
+    return 0.2 * torch.sqrt(m_min / params.kn)

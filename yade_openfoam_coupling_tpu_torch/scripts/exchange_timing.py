@@ -6,13 +6,16 @@ path's shape: bench.py's 100k-particle jittered lattice on a 128^3 channel
 cell; B1 also with torque and added mass. Then B3 (`distribute_rolls`) at
 its two paths' shapes, 27 taps x 4 channels (the sparse exchange) and 8 x 3
 (the point-force exchange), on a seeded anchor buffer laid out as the
-timed tree's `_deposit_anchor_rolls` lays it out.
+timed tree's `_deposit_anchor_rolls` lays it out. Then B7 (`stage_planes`
+of `scripts/proto_dynwin.py`, dynamic) at the prototype's shape and at the
+window exchange's (this lattice's window value and y rows).
 
-    python yade_openfoam_coupling_tpu_torch/scripts/exchange_timing.py [--root DIR]
+    python yade_openfoam_coupling_tpu_torch/scripts/exchange_timing.py [--root DIR] [--only S]
 
 Run it by file path: ``--root`` names the checkout whose package is timed
 (default: the one that holds this file), so that two trees' kernels can be
-compared on one card, in turns, from one shell command. For each kernel it prints
+compared on one card, in turns, from one shell command; ``--only`` times
+the kernels whose name holds S. For each kernel it prints
 one JSON line: the median milliseconds of a call with the host's work in
 the wrapper (`ms`) and of the card alone (`device_ms`, the card kept busy
 while the host enqueues), and the peak device memory while one call runs
@@ -100,6 +103,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose yade_openfoam_coupling_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--only", default="", help="time only the kernels whose name holds this")
     ap.add_argument("--profile", action="store_true",
                     help="also print each launch's device time from a torch.profiler trace")
     args = ap.parse_args(argv)
@@ -116,6 +120,7 @@ def main(argv=None) -> int:
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
     from yade_openfoam_coupling_tpu_torch.ops import rolls
     from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
+    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -163,8 +168,19 @@ def main(argv=None) -> int:
                               ("rolls_deposit (8, 3)", cp.TRILINEAR_CORNERS, 3)):
         bufT = anchor_buffer(cp, grid, len(offsets), C, gen)
         calls[label] = lambda bufT=bufT, offsets=offsets: rolls.distribute_rolls(bufT, offsets)
+    pdat, pnch = (torch.as_tensor(a, device=dev) for a in dw.prototype_inputs())
+    calls["dynwin_staging (prototype)"] = lambda: dw.stage_planes(pdat, pnch, dw.NY, dw.NZ,
+                                                                  dw.W_CHUNK, True)
+    wbins = cw.window_bins(pf, grid, CAP, W)
+    ych = wbins.dat_win.shape[1] - 3
+    wdat = torch.stack([wbins.dat_win[:, 0], wbins.dat_win[:, ych]], 1).contiguous()
+    wnch = torch.div(wbins.counts.clamp(max=W) + dw.W_CHUNK - 1, dw.W_CHUNK,
+                     rounding_mode="floor").to(torch.int32)
+    calls["dynwin_staging (window shape)"] = lambda: dw.stage_planes(wdat, wnch, NX, NX,
+                                                                     dw.W_CHUNK, True)
+    calls = {k: v for k, v in calls.items() if args.only in k}
 
-    if args.profile:
+    if args.profile and not args.only:
         # the card's rate for the exchange's dense writes, one fill each
         stks = torch.empty((3, 8) + grid.shape, device=dev)
         pres = torch.empty((4, CAP) + grid.shape, device=dev)

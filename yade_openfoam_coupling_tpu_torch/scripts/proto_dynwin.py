@@ -23,6 +23,7 @@ equality.
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 
 import numpy as np
@@ -31,6 +32,8 @@ import torch
 _KERNEL = "dynwin staging kernel"
 NY, NZ, W, W_CHUNK = 128, 128, 2048, 512
 COUNTS = (0, 2048, 512, 0, 1536, 0, 0, 100)
+BLOCKS_PER_SM = 2    # the kernel's grid: y bands enough for this many blocks an SM
+MAX_BAND = 1024      # y rows a block may own (kMaxBand in csrc/dynwin_staging.cu)
 
 
 def _chunk_bounds(nch: torch.Tensor, n_chunks: int, dynamic: bool) -> torch.Tensor:
@@ -75,6 +78,21 @@ def _check(dat: torch.Tensor, nch: torch.Tensor, w_chunk: int) -> None:
                          f"w_chunk = {w_chunk}")
 
 
+@functools.lru_cache(maxsize=64)
+def kernel_params(nxl: int, Wd: int, ny: int, nz: int, w_chunk: int, dynamic: bool,
+                  n_sm: int) -> np.ndarray:
+    """The kernel's read-only int32 parameters (nxl, W, ny, nz, w_chunk,
+    dynamic, y_split), built once per shape. y_split cuts each plane's y
+    rows into bands of at most MAX_BAND rows, enough that the grid (nxl,
+    y_split) gives about BLOCKS_PER_SM blocks to each of the card's n_sm
+    SMs, and no band is empty."""
+    y_split = min(ny, max(1, -(-BLOCKS_PER_SM * n_sm // nxl)))
+    band = min(-(-ny // y_split), MAX_BAND)
+    ip = np.asarray([nxl, Wd, ny, nz, w_chunk, int(dynamic), -(-ny // band)], np.int32)
+    ip.setflags(write=False)
+    return ip
+
+
 def stage_planes(dat: torch.Tensor, nch: torch.Tensor, ny: int, nz: int, w_chunk: int,
                  dynamic: bool) -> torch.Tensor:
     """-> (nxl, ny, nz). CPU tensors run the plain version; CUDA tensors
@@ -86,7 +104,7 @@ def stage_planes(dat: torch.Tensor, nch: torch.Tensor, ny: int, nz: int, w_chunk
         raise ValueError(f"{_KERNEL}: unsupported device {dat.device}")
     from ..kernels import call
     nxl, _, Wd = dat.shape
-    ip = np.asarray([nxl, Wd, ny, nz, w_chunk, int(dynamic)], np.int32)
+    ip = kernel_params(nxl, Wd, ny, nz, w_chunk, bool(dynamic), _sm_count(dat.device))
     out = torch.empty((nxl, ny, nz), dtype=torch.float32, device=dat.device)
     call("dynwin_staging", "yofc_dynwin_staging", _KERNEL, ip, dat, nch.contiguous(), out,
          device=dat.device)
@@ -95,6 +113,11 @@ def stage_planes(dat: torch.Tensor, nch: torch.Tensor, ny: int, nz: int, w_chunk
 
 
 stage_planes.launches = 0
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def prototype_inputs():
