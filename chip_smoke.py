@@ -30,6 +30,18 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
   * the `--yade-physics` slice: bench.py's configuration with the
     tangential spring history, dynamic substeps (up to 8, the count from
     the Rayleigh critical dt), the rows pair layout and no carried contact;
+  * the rest of the fluid: `pimplefoam <case>` on a RAS kEpsilon case
+    with adjustTimeStep and on an LES Smagorinsky case; the kEpsilon slice
+    (the CLI slice's configuration with kEpsilon and implicit momentum
+    diffusion, B2 in the pressure and the Helmholtz momentum solves); a
+    10-step chunk of it with adjustTimeStep from a stiff start (nut 1e-2,
+    dt 1e-5: dt must pass 3x the explicit-diffusion bound); a
+    Smagorinsky chunk; a `use_pallas` chunk with the bf16 V-cycle (B2's
+    bf16 entry); a `fixed_iters` chunk whose CG iterations run under
+    `torch.cuda.set_sync_debug_mode("error")`;
+  * the slots slice: the window slice's configuration with the slot-table
+    exchange (its deposit is B3), and the sparse exchange at
+    `stencil_width=5` (B3 with 125 taps) on a 96^3 grid;
 then holds B1, B4 and B6 at slot capacities 9 and 16 against their plain
 versions on a crowded lattice, the 4-slab chunked planes exchange against
 the whole-grid one, checks the bench's health conditions and that each
@@ -75,6 +87,16 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 CLI_ARGS = ["--random-particles", str(N_PARTICLES), "--radius", str(RADIUS), "--kn", "100",
             "--dem-substeps", "4", "--chunk", "10"]
+# the CLI's own initial turbulence state (k0 1e-6, eps 0), and the
+# kEpsilon slice's: k 1e-4 m^2/s^2, eps 9e-5 m^2/s^3, nut = C_mu k^2/eps =
+# 1e-5 m^2/s (10 nu), whose explicit k and eps transport is stable at dt 5e-5
+CLI_TURB, KEPS_TURB = (1e-6, 0.0), (1e-4, 9e-5)
+# tests/test_implicit_diffusion.py's stiff start for the adjusted-dt chunk:
+# nut = 0.09 * 1e-4 / 9e-4 = 1e-2 m^2/s, dt from 1e-5 growing 1.2x a step
+STIFF_TURB, STIFF_DT = (1e-2, 9e-4), 1e-5
+CLOSURES = {"kEqn": "simulationType LES; LES { LESModel kEqn; }",
+            "kEpsilon": "simulationType RAS; RAS { RASModel kEpsilon; }",
+            "Smagorinsky": "simulationType LES; LES { LESModel Smagorinsky; }"}
 
 
 def bench_config(nx):
@@ -153,10 +175,11 @@ def closing_pairs(n, length, n_pairs=16, seed=2):
             np.concatenate([vel, vel[paired] + slide - 0.2 * d]))
 
 
-def initial_state(cfg, n, device, vel_scale=0.0, particles=None):
+def initial_state(cfg, n, device, vel_scale=0.0, particles=None, turb=CLI_TURB, dt=DT):
     """The bench lattice (velocities vel_scale x seeded normals), or the
-    (pos, vel) that particles(n, box length) returns, through
-    `initialize_state` on device."""
+    (pos, vel) that particles(n, box length) returns, and a uniform
+    turbulence state (k0, eps0), through `initialize_state` on device
+    with the initial dt."""
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
     from yade_openfoam_coupling_tpu_torch.models.fields import (
         make_fluid_state, make_particle_state, make_turbulence_state)
@@ -168,7 +191,7 @@ def initial_state(cfg, n, device, vel_scale=0.0, particles=None):
     return cd.initialize_state(
         make_fluid_state(cfg.grid, device),
         make_particle_state(pos, device, vel=vel, radius=RADIUS),
-        make_turbulence_state(cfg.grid, device, k0=1e-6), cfg, dt=DT)
+        make_turbulence_state(cfg.grid, device, k0=turb[0], eps0=turb[1]), cfg, dt=dt)
 
 
 def kernel_times(fn, reps=20):
@@ -366,10 +389,12 @@ def rolls_kernel_phase(device, offsets, C):
     """B3 against its plain version at a path's shapes: a seeded
     offset-major anchor buffer (S*C, anchor_row_length) seen as (S, C,
     128^3), as the deposit hands it over (the sparse exchange's cube
-    stencil with C = 4, the point-force exchange's 8 corners with C = 3).
-    Times the kernel, the plain roll loop and one circular Conv3d with
-    one-hot weights w[c, o*C + c, 1 - dx, 1 - dy, 1 - dz] = 1 (TF32 off),
-    which computes the same function and which the port does not use."""
+    stencil with C = 4, and at stencil_width 5 with 125 taps; the
+    point-force exchange's 8 corners with C = 3; the slots exchange's
+    sphere2 stencil with C = 8). Times the kernel, the plain roll loop and
+    one circular Conv3d with one-hot weights w[c, o*C + c, r - dx, r - dy,
+    r - dz] = 1, r the widest offset (TF32 off), which computes the same
+    function and which the port does not use."""
     import torch
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops import rolls
@@ -384,18 +409,19 @@ def rolls_kernel_phase(device, offsets, C):
     kern = rolls.distribute_rolls(bufT, offsets)
     err = check_close("rolls_deposit", "out", kern, plain)
 
-    conv = torch.nn.Conv3d(S * C, C, 3, padding=1, padding_mode="circular", bias=False,
-                           device=device)
+    r = int(np.abs(offsets).max())
+    conv = torch.nn.Conv3d(S * C, C, 2 * r + 1, padding=r, padding_mode="circular",
+                           bias=False, device=device)
     with torch.no_grad():
         conv.weight.zero_()
         for o, (dx, dy, dz) in enumerate(offsets):
             for c in range(C):
-                conv.weight[c, o * C + c, 1 - dx, 1 - dy, 1 - dz] = 1.0
+                conv.weight[c, o * C + c, r - dx, r - dy, r - dz] = 1.0
         x = bufT.reshape((1, S * C) + shape).contiguous()
         lib = conv(x)[0]
         lib_err = float((lib - plain).abs().max())
         library_ms = cuda_ms(lambda: conv(x), 5)
-    del x
+    del x, conv
     ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20)
     dev_ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20, device_only=True)
     plain_ms = cuda_ms(lambda: rolls.distribute_rolls_reference(bufT, offsets), 5)
@@ -432,6 +458,46 @@ def laplacian_kernel_phase(device):
     plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
     print(f"kernel laplacian ({NX}^3): max_abs_err {err:.3e}; kernel {ms:.4f} ms "
           f"({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
+
+
+def laplacian_bf16_kernel_phase(device):
+    """B2's bf16 entry against the plain stencil run on the same bf16
+    tensors at 128^3 (the V-cycle's fine level under MGConfig.bf16): bit
+    for bit, or within 1 bf16 ulp of the output's scale. No single PyTorch
+    call computes it (library_ms null)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
+    from yade_openfoam_coupling_tpu_torch.ops.grid import Grid, pad_scalar
+    from yade_openfoam_coupling_tpu_torch.ops.stencil import laplacian_facegamma_padded
+
+    bf = torch.bfloat16
+    grid = Grid.cube(NX, 1e-3 * NX)
+    gen = torch.Generator(device=device).manual_seed(4)
+    pp = pad_scalar(torch.randn(grid.shape, generator=gen, device=device).to(bf),
+                    FluidBCs.channel_z().p)
+    n = NX
+    gamma_f = tuple((0.5 + torch.rand(s, generator=gen, device=device)).to(bf)
+                    for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+    plain = laplacian_facegamma_padded(gamma_f, pp, grid)
+    kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
+    if kern.dtype != bf or not bool(torch.isfinite(kern).all()):
+        raise AssertionError(f"laplacian_bf16: dtype {kern.dtype} or non-finite values")
+    err = float((kern.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    if not err <= ulp:
+        raise AssertionError(f"laplacian_bf16 disagrees with its plain version: max err "
+                             f"{err:.3e} > 1 bf16 ulp of the scale ({ulp:.3e})")
+    ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50)
+    dev_ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50,
+                     device_only=True)
+    plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
+    print(f"kernel laplacian_bf16 ({NX}^3): max_abs_err {err:.3e} ("
+          f"{'bit for bit' if err == 0 else 'within 1 bf16 ulp'}, ulp {ulp:.3e}); kernel "
+          f"{ms:.4f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
 
@@ -587,12 +653,13 @@ def dynwin_script_phase(card):
     return dw.stage_planes.launches
 
 
-def write_cli_case(d: Path, n=NX, length=1e-3 * NX):
+def write_cli_case(d: Path, n=NX, length=1e-3 * NX, model="kEqn", adjust=False):
     """The channel case directory of the CLI slice (ASCII OpenFOAM
     dictionaries): one hex block, cyclic x/y patches, no-slip z walls with
-    zero-gradient p, nu 1e-6, densities 2500/1000, gravity -z, LES kEqn,
-    deltaT 5e-5, GAMG pressure (mgpcg) to tolerance 0 / relTol 0 in at most
-    200 iterations, PIMPLE 1 outer x 2 correctors."""
+    zero-gradient p, nu 1e-6, densities 2500/1000, gravity -z, LES kEqn
+    (or `model`), deltaT 5e-5 (with `adjust`, adjustTimeStep yes, maxCo
+    0.5), GAMG pressure (mgpcg) to tolerance 0 / relTol 0 in at most 200
+    iterations, PIMPLE 1 outer x 2 correctors."""
     for sub in ("system", "constant", "0"):
         (d / sub).mkdir(parents=True, exist_ok=True)
     L = length
@@ -608,9 +675,10 @@ def write_cli_case(d: Path, n=NX, length=1e-3 * NX):
     (d / "constant/transportProperties").write_text(
         "nu nu [0 2 -1 0 0 0 0] 1e-06; partDensity 2500; fluidDensity 1000;")
     (d / "constant/g").write_text("dimensions [0 1 -2 0 0 0 0]; value (0 0 -9.81);")
-    (d / "constant/turbulenceProperties").write_text(
-        "simulationType LES; LES { LESModel kEqn; }")
-    (d / "system/controlDict").write_text("deltaT 5e-05; endTime 1000; writeInterval 1000;")
+    (d / "constant/turbulenceProperties").write_text(CLOSURES[model])
+    (d / "system/controlDict").write_text(
+        "deltaT 5e-05; endTime 1000; writeInterval 1000;"
+        + (" adjustTimeStep yes; maxCo 0.5;" if adjust else ""))
     (d / "system/fvSolution").write_text(
         "solvers { p { solver GAMG; tolerance 0; relTol 0; maxIter 200; } }"
         " PIMPLE { nOuterCorrectors 1; nCorrectors 2; }")
@@ -644,18 +712,20 @@ def write_ico_case(d: Path, n=NX, length=1e-3 * NX):
 CLI_SOLVERS = {"pimple": ("pimplefoam", write_cli_case, 2), "piso": ("icofoam", write_ico_case, 1)}
 
 
-def cli_phase(card, solver, steps=20, extra=(), kernel=None):
+def cli_phase(card, solver, steps=20, extra=(), kernel=None, **case_kw):
     """`pimplefoam <case>` or `icofoam <case>` through the CLI's own `main`
     on the card (its default device): 100k random particles, `steps`
     steps, with the CLI arguments `extra`. The launch counts are set to 0
     just before and read just after; B3 must have run at least as often
     per step as the exchange deposits, or `kernel` (the exchange kernel
-    that `extra` selects) once a step. -> the launch counts."""
+    that `extra` selects) once a step; `case_kw` go to the case writer.
+    -> the launch counts."""
     from yade_openfoam_coupling_tpu_torch import cli
 
     cmd, writer, b3_per_step = CLI_SOLVERS[solver]
     kernel, per_step = (kernel, 1) if kernel else ("rolls_deposit", b3_per_step)
-    case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")))
+    case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")), **case_kw)
+    label = " ".join([cmd, *extra] + [f"{k}={v}" for k, v in case_kw.items()])
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -665,23 +735,24 @@ def cli_phase(card, solver, steps=20, extra=(), kernel=None):
     finally:
         shutil.rmtree(case)
     if rc != 0:
-        raise AssertionError(f"{cmd} {' '.join(extra)} exited with {rc}")
+        raise AssertionError(f"{label} exited with {rc}")
     if launches[kernel] < per_step * steps:
-        raise AssertionError(f"CLI {cmd} {' '.join(extra)}: {kernel} launched "
+        raise AssertionError(f"CLI {label}: {kernel} launched "
                              f"{launches[kernel]} times in {steps} steps")
-    print(f"CLI {cmd} {' '.join(extra)}, {N_PARTICLES} random particles, {NX}^3: {steps} steps "
+    print(f"CLI {label}, {N_PARTICLES} random particles, {NX}^3: {steps} steps "
           f"in {wall:.2f} s with set-up [{card}]; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return launches
 
 
-def cli_config(solver):
+def cli_config(solver, **case_kw):
     """The CaseConfig the CLI's set-up function builds for the CLI slice of
-    ``solver`` (its initial state, built on the card too, is dropped)."""
+    ``solver`` (its initial state, built on the card too, is dropped);
+    `case_kw` go to the case writer."""
     from yade_openfoam_coupling_tpu_torch import cli
 
     cmd, writer, _ = CLI_SOLVERS[solver]
-    case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")))
+    case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")), **case_kw)
     try:
         args = cli.build_parser().parse_args([cmd, str(case), *CLI_ARGS])
         cfg, _, _ = cli.setup(args, solver)
@@ -690,7 +761,7 @@ def cli_config(solver):
     return cfg
 
 
-def stage_phase(cfg, device, card, label):
+def stage_phase(cfg, device, card, label, turb=CLI_TURB):
     """Where one STEPS_PER_RUN-step chunk's time goes, after a warm-up
     chunk: synchronised host-clock time in the exchange, the DEM substeps,
     the fluid step (the turbulence correction and the PIMPLE step, or the
@@ -705,6 +776,8 @@ def stage_phase(cfg, device, card, label):
     fluid = ([(cd, "piso_step")] if cfg.solver == "piso"
              else [(turbulence, "correct"), (cd, "pimple_step")])
     spots = [(cd, "exchange"), (dem, "dem_substeps"), *fluid, (pressure, "solve_pressure")]
+    if cfg.solver == "pimple" and cfg.pimple.implicit_diffusion:
+        spots.append((pressure, "solve_helmholtz"))
     spent = dict.fromkeys((name for _, name in spots), 0.0)
 
     def timed(name, fn):
@@ -717,7 +790,7 @@ def stage_phase(cfg, device, card, label):
             return out
         return run
 
-    state = initial_state(cfg, N_PARTICLES, device)
+    state = initial_state(cfg, N_PARTICLES, device, turb=turb)
     run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
     state, _ = run(state)
     originals = [(mod, name, getattr(mod, name)) for mod, name in spots]
@@ -746,30 +819,90 @@ def with_use_pallas(cfg):
     return dataclasses.replace(cfg, **{cfg.solver: fluid})
 
 
+def fluid_config(cfg, model=None, implicit=False, bf16=False, fixed_iters=0):
+    """cfg (a PIMPLE one) with the turbulence `model`; with `implicit`,
+    implicit momentum diffusion (full_stress off) with B2 in the Helmholtz
+    solves; with `bf16`, the pressure V-cycle in bf16; with `fixed_iters`,
+    that CG budget for the pressure solves."""
+    from yade_openfoam_coupling_tpu_torch.models.turbulence import TurbulenceConfig
+    pim = cfg.pimple
+    if implicit:
+        pim = dataclasses.replace(pim, implicit_diffusion=True, full_stress=False,
+                                  momentum=dataclasses.replace(pim.momentum, use_pallas=True))
+    pres = pim.pressure
+    if bf16:
+        pres = dataclasses.replace(pres, mg=dataclasses.replace(pres.mg, bf16=True))
+    pim = dataclasses.replace(pim, pressure=dataclasses.replace(pres, fixed_iters=fixed_iters))
+    turbulence = cfg.turbulence if model is None else TurbulenceConfig(model=model)
+    return dataclasses.replace(cfg, pimple=pim, turbulence=turbulence)
+
+
+class SolveCounter:
+    """Collects the iteration counts (device tensors, read after the run)
+    of every call of `pressure.<name>` while active; for `pcg` calls with
+    a fixed budget, runs them under `torch.cuda.set_sync_debug_mode
+    ("error")`, which raises on any host read or synchronisation."""
+
+    def __init__(self, name):
+        self.name, self.iters, self.fixed_calls = name, [], 0
+
+    def __enter__(self):
+        import torch
+        from yade_openfoam_coupling_tpu_torch.ops import pressure
+        self.fn = getattr(pressure, self.name)
+
+        def run(*a, **kw):
+            if kw.get("fixed_iters", 0) > 0:
+                self.fixed_calls += 1
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    res = self.fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                res = self.fn(*a, **kw)
+            self.iters.append(res.iters)
+            return res
+        setattr(pressure, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        from yade_openfoam_coupling_tpu_torch.ops import pressure
+        setattr(pressure, self.name, self.fn)
+
+    def counts(self):
+        import torch
+        return torch.stack(self.iters).cpu().numpy() if self.iters else np.zeros(0, int)
+
+
 def launch_counters():
+    """Each kernel's launch counter: (wrapper, attribute)."""
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
     from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, rolls
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin
-    return {"window_exchange": cw.window_exchange_padded,
-            "planes_fused": cpp.fused_exchange_padded,
-            "planes_interp": cpp.interp_planes_padded,
-            "planes_deposit": cpp.deposit_stacks,
-            "rolls_deposit": rolls.distribute_rolls,
-            "laplacian": fused_stencil.laplacian_facegamma_fused,
-            "dynwin_staging": proto_dynwin.stage_planes}
+    lap = fused_stencil.laplacian_facegamma_fused
+    return {"window_exchange": (cw.window_exchange_padded, "launches"),
+            "planes_fused": (cpp.fused_exchange_padded, "launches"),
+            "planes_interp": (cpp.interp_planes_padded, "launches"),
+            "planes_deposit": (cpp.deposit_stacks, "launches"),
+            "rolls_deposit": (rolls.distribute_rolls, "launches"),
+            "laplacian": (lap, "launches"),
+            "laplacian_bf16": (lap, "launches_bf16"),
+            "dynwin_staging": (proto_dynwin.stage_planes, "launches")}
 
 
 def reset_launches():
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
-def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report=None):
+def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report=None,
+                turb=CLI_TURB, n=None, dt=DT):
     """One path at full size, as bench.py runs it: set-up and a warm-up
     chunk, then `timed_runs` timed chunks of STEPS_PER_RUN steps. Every
     launch count is set to 0 just before and read just after; each kernel
@@ -781,9 +914,10 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
 
     per_step = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
+    n = N_PARTICLES if n is None else n
     reset_launches()
     t0 = time.perf_counter()
-    state = initial_state(cfg, N_PARTICLES, device)
+    state = initial_state(cfg, n, device, turb=turb, dt=dt)
     run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -817,7 +951,8 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report
         raise AssertionError(f"{label}: capacity overflows: {n_over}")
     fs, ps = state.fluid, state.particles
     for name, t in (("u", fs.u), ("p", fs.p), ("alpha", fs.alpha), ("pos", ps.pos),
-                    ("vel", ps.vel), ("nut", state.turb.nut)):
+                    ("vel", ps.vel), ("k", state.turb.k), ("epsilon", state.turb.epsilon),
+                    ("nut", state.turb.nut)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{label}: non-finite values in {name}")
     for name, k in per_step.items():
@@ -826,7 +961,7 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report
                                  f"times in {n_steps} steps (at least {k} per step)")
     rate = (f"{timed_runs * STEPS_PER_RUN / wall:.3f} coupled steps/s [{card}]; "
             if timed_runs else "")
-    print(f"{label} {N_PARTICLES} particles {NX}^3: {rate}p_iters "
+    print(f"{label} {n} particles {cfg.grid.shape[0]}^3: {rate}p_iters "
           f"{d['p_iters'].min()}-{d['p_iters'].max()}, p residual {p_final:.3e}, "
           f"continuity {cont:.3e}, overflows {n_over}, launches "
           f"{ {k: launches[k] for k in per_step} } in {n_steps} steps"
@@ -866,7 +1001,53 @@ def chunked_phase(cfg, device):
           f"worst relative difference {worst:.3e}, overflows 0", flush=True)
 
 
-def small_check(device, cfg, label, n=400, particles=None):
+def keps_report(cfg, helm):
+    """The kEpsilon slice's own numbers: dt per step against the explicit
+    diffusion bound h^2 / (6 nu_eff,max) of its last state, and the
+    Helmholtz momentum iterations per step (three solves a step). With
+    adjust_time_step dt must exceed 3x the bound. -> report(state, d)."""
+    from yade_openfoam_coupling_tpu_torch.utils.diagnostics import diffusive_dt_bound
+
+    def report(state, d):
+        nut_max = float(state.turb.nut.max())
+        dt_b = float(diffusive_dt_bound(cfg.grid, cfg.transport.nu, nut_max))
+        dt = float(state.dt)
+        if cfg.time.adjust_time_step and not dt > 3.0 * dt_b:
+            raise AssertionError(f"kEpsilon slice: dt {dt:.3e} not above 3x the explicit "
+                                 f"bound {dt_b:.3e}")
+        it = helm.counts()
+        per_step = it.reshape(-1, 3).sum(1) if it.size % 3 == 0 else it
+        return (f"dt {dt:.3e} s ({'adjusted' if cfg.time.adjust_time_step else 'fixed'}), "
+                f"explicit-diffusion bound {dt_b:.3e} s at nut_max {nut_max:.3e} m^2/s "
+                f"(dt / bound {dt / dt_b:.3g}); Helmholtz iterations per step "
+                f"{per_step.tolist()}")
+    return report
+
+
+def slots_exchange_phase(cfg, device, card):
+    """One slots exchange at 128^3/100k (the bench lattice, the initial
+    fluid state): its peak device memory, and above what was allocated
+    before it; its device time by launch from a `torch.profiler` trace of
+    3 calls (the 6 longest)."""
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+
+    state = initial_state(cfg, N_PARTICLES, device)
+    fs, ps = state.fluid, state.particles
+
+    def exchange():
+        return cd.exchange(fs, ps, cfg.grid, cfg.bcs, cfg.transport, cfg.coupling, state.dt)
+
+    peak, above = peak_mb(exchange)
+    split = launch_split(exchange, 3)
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    print(f"slots exchange ({NX}^3, {N_PARTICLES} particles, cap "
+          f"{cfg.coupling.slot_capacity}): peak device memory of one exchange {peak:.1f} MB, "
+          f"{above:.1f} MB above what was allocated before it; device {sum(split.values()):.0f} "
+          f"us a call, the longest launches (us): "
+          + "; ".join(f"{us:.0f} {name[:60]}" for name, us in top) + f" [{card}]", flush=True)
+
+
+def small_check(device, cfg, label, n=400, particles=None, turb=CLI_TURB):
     """The CUDA path against the CPU path (plain versions) of the same port
     on a 16^3 case with n moving particles (the seeded lattice, or
     `particles`), 4 steps: the state agrees to 1e-3 of each field's scale
@@ -878,7 +1059,7 @@ def small_check(device, cfg, label, n=400, particles=None):
     cfg = dataclasses.replace(cfg, dem=dataclasses.replace(cfg.dem, list_rebuild_steps=2))
     out = {}
     for dev in (device, torch.device("cpu")):
-        state = initial_state(cfg, n, dev, vel_scale=1e-2, particles=particles)
+        state = initial_state(cfg, n, dev, vel_scale=1e-2, particles=particles, turb=turb)
         state, diags = cd.make_scan_fn(cfg, 4)(state)
         out[dev.type] = (state, diags)
     (gs, gd), (cs, cd_) = out["cuda"], out["cpu"]
@@ -953,6 +1134,7 @@ def main() -> int:
     from yade_openfoam_coupling_tpu_torch import kernels
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops.obstacle import box_solid
+    from yade_openfoam_coupling_tpu_torch.utils.diagnostics import TimeControls
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -982,6 +1164,11 @@ def main() -> int:
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4)
     kern["rolls_deposit_point_force"] = rolls_kernel_phase(device, cp.TRILINEAR_CORNERS, 3)
     kern["laplacian"] = laplacian_kernel_phase(device)
+    kern["laplacian_bf16"] = laplacian_bf16_kernel_phase(device)
+    kern["rolls_deposit_125"] = rolls_kernel_phase(
+        device, cp.stencil_offsets(cp.CouplingConfig(stencil_width=5)), 4)
+    kern["rolls_deposit_slots"] = rolls_kernel_phase(
+        device, cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")), 8)
     proto = dynwin_kernel_phase(device, "prototype", *(
         torch.as_tensor(a, device=device) for a in dw.prototype_inputs()), dw.NY, dw.NZ)
     kern["dynwin_staging"] = dynwin_kernel_phase(device, "window shape",
@@ -1020,14 +1207,69 @@ def main() -> int:
     ccfg = cli_config("pimple")
     runs, iters = slice_phase(ccfg, device, smi, "CLI slice", {"rolls_deposit": 2})
     launches["rolls_deposit"] = runs["rolls_deposit"]
-    runs, iters_pal = slice_phase(with_use_pallas(ccfg), device, smi,
-                                  "CLI slice, use_pallas", {"rolls_deposit": 2,
-                                                            "laplacian": 1}, timed_runs=0)
+    pcfg_pal = with_use_pallas(ccfg)
+    with SolveCounter("pcg") as solves:
+        runs, iters_pal = slice_phase(pcfg_pal, device, smi, "CLI slice, use_pallas",
+                                      {"rolls_deposit": 2, "laplacian": 1}, timed_runs=1)
     launches["laplacian"] = runs["laplacian"]
     print(f"CLI slice p_iters per step: {iters.tolist()}; with use_pallas: "
           f"{iters_pal.tolist()}", flush=True)
     stage_phase(ccfg, device, smi, "CLI slice")
-    stage_phase(with_use_pallas(ccfg), device, smi, "CLI slice, use_pallas")
+    stage_phase(pcfg_pal, device, smi, "CLI slice, use_pallas")
+
+    # the rest of the fluid: the closures, implicit diffusion, bf16, fixed_iters
+    for model in ("kEpsilon", "Smagorinsky"):
+        cli_phase(smi, "pimple", steps=STEPS_PER_RUN, model=model, adjust=model == "kEpsilon")
+    kcfg = fluid_config(pcfg_pal, "kEpsilon", implicit=True)
+    with SolveCounter("solve_helmholtz") as helm:
+        slice_phase(kcfg, device, smi, "kEpsilon slice (implicit diffusion, use_pallas)",
+                    {"laplacian": 1}, timed_runs=1, report=keps_report(kcfg, helm),
+                    turb=KEPS_TURB)
+    stage_phase(kcfg, device, smi, "kEpsilon slice", turb=KEPS_TURB)
+    acfg = dataclasses.replace(kcfg, time=TimeControls(adjust_time_step=True, max_co=0.5,
+                                                       max_dt=2e-3))
+    with SolveCounter("solve_helmholtz") as helm:
+        slice_phase(acfg, device, smi, "kEpsilon slice, adjustTimeStep, nut 1e-2",
+                    {"laplacian": 1}, timed_runs=0, report=keps_report(acfg, helm),
+                    turb=STIFF_TURB, dt=STIFF_DT)
+    scfg = fluid_config(ccfg, "Smagorinsky")
+    slice_phase(scfg, device, smi, "Smagorinsky slice", {"rolls_deposit": 2}, timed_runs=1)
+    stage_phase(scfg, device, smi, "Smagorinsky slice")
+    bcfg = fluid_config(pcfg_pal, bf16=True)
+    runs, iters_bf = slice_phase(bcfg, device, smi, "CLI slice, use_pallas, bf16 V-cycle",
+                                 {"rolls_deposit": 2, "laplacian_bf16": 1}, timed_runs=1)
+    launches["laplacian_bf16"] = runs["laplacian_bf16"]
+    print(f"CLI slice p_iters per step, use_pallas: f32 V-cycle {iters_pal.tolist()}, bf16 "
+          f"V-cycle {iters_bf.tolist()}", flush=True)
+    stage_phase(bcfg, device, smi, "CLI slice, use_pallas, bf16 V-cycle")
+    budget = int(solves.counts().max()) + 3
+    fcfg = fluid_config(pcfg_pal, fixed_iters=budget)
+    with SolveCounter("pcg") as fixed:
+        _, iters_fx = slice_phase(fcfg, device, smi,
+                                  f"CLI slice, use_pallas, fixed_iters={budget}",
+                                  {"rolls_deposit": 2, "laplacian": 1}, timed_runs=1)
+    if fixed.fixed_calls == 0:
+        raise AssertionError("fixed_iters chunk: no pressure solve ran with a fixed budget")
+    print(f"fixed_iters chunk: {fixed.fixed_calls} CG solves of {budget} iterations under "
+          f"set_sync_debug_mode('error'), no host read; live p_iters per step "
+          f"{iters_fx.tolist()} (while loop {iters_pal.tolist()})", flush=True)
+
+    # the slots exchange, and the sparse exchange at stencil_width 5
+    slcfg = dataclasses.replace(cfg, coupling=dataclasses.replace(
+        cfg.coupling, exchange="slots", slot_capacity=4))
+    runs, _ = slice_phase(slcfg, device, smi, "slots slice", {"rolls_deposit": 1}, timed_runs=1)
+    launches["rolls_deposit_slots"] = runs["rolls_deposit"]
+    stage_phase(slcfg, device, smi, "slots slice")
+    slots_exchange_phase(slcfg, device, smi)
+    # 96^3 keeps the anchor buffer (125 x 4 x 96^3) under the roll route's
+    # limit; the lattice keeps the 128^3 slices' particle density
+    w5cfg = cli_config("pimple", n=96, length=0.096)
+    w5cfg = dataclasses.replace(w5cfg, coupling=dataclasses.replace(w5cfg.coupling,
+                                                                    stencil_width=5))
+    runs, _ = slice_phase(w5cfg, device, smi, "sparse exchange, stencil_width 5",
+                          {"rolls_deposit": 2}, timed_runs=0,
+                          n=N_PARTICLES * 96 ** 3 // NX ** 3)
+    launches["rolls_deposit_125"] = runs["rolls_deposit"]
 
     cli_phase(smi, "piso")
     picfg = cli_config("piso")
@@ -1052,6 +1294,13 @@ def main() -> int:
                 "PISO, box obstacle, use_pallas")
     small_check(device, yade_physics_config(bench_config(16)), "yade-physics, loaded springs",
                 n=500, particles=closing_pairs)
+    small_check(device, dataclasses.replace(slcfg, grid=grid16), "slots")
+    # (not the bf16 V-cycle: PyTorch rounds bf16 divisions by a scalar
+    # differently on the CPU, so the two paths' preconditioners differ; on
+    # the card B2's bf16 entry is held bit for bit against the plain stencil)
+    small_check(device, dataclasses.replace(fluid_config(pcfg_pal, "kEpsilon", implicit=True),
+                                            grid=grid16),
+                "kEpsilon, implicit diffusion, use_pallas", turb=KEPS_TURB)
 
     sources = {"window_exchange": ("window_exchange.cu", JAX_OPS + "coupling_window.py:162"),
                "planes_fused": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
@@ -1061,6 +1310,9 @@ def main() -> int:
                "rolls_deposit_point_force": ("rolls_deposit.cu",
                                              JAX_OPS + "pallas_rolls.py:39"),
                "laplacian": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
+               "laplacian_bf16": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
+               "rolls_deposit_125": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
+               "rolls_deposit_slots": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
                "dynwin_staging": ("dynwin_staging.cu", "scripts/proto_dynwin.py:34")}
     entries = []
     for name, e in kern.items():

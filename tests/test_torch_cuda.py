@@ -717,3 +717,99 @@ def test_dynwin_kernel_edge_cases(cuda, case):
     assert bool(live.any()) and not bool(live[1])
     _assert_channels_close(flat[live], ref[live])
     assert not flat[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128, 128), (64, 64, 64), (13, 10, 17)])
+def test_laplacian_bf16_kernel_matches_plain(cuda, shape):
+    """B2's bf16 entry against the plain stencil run on the same bf16
+    tensors (each operation rounded to bf16 as PyTorch rounds it): bit for
+    bit, or at most 1 bf16 ulp of the output's scale, at the V-cycle's
+    fine-level shapes and an odd one, with periodic x, Neumann y and
+    nonzero-Dirichlet z ghosts; both dtypes count in `launches`, the bf16
+    ones also in `launches_bf16`."""
+    grid = Grid.box(shape, tuple(1e-3 * n for n in shape))
+    bc = FieldBC(((FaceBC("periodic"),) * 2, (FaceBC(NEUMANN),) * 2,
+                  (FaceBC(DIRICHLET, 0.3), FaceBC(DIRICHLET, -0.2))))
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    p = torch.randn(grid.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    gamma = 1.0 + 0.5 * torch.rand(grid.shape, generator=gen, device=cuda)
+    gamma_f = tuple(g.to(torch.bfloat16)
+                    for g in face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN))))
+    pp = pad_scalar(p, bc)
+    plain = laplacian_facegamma_padded(gamma_f, pp, grid)
+    before = (fs.laplacian_facegamma_fused.launches, fs.laplacian_facegamma_fused.launches_bf16)
+    kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
+    torch.cuda.synchronize()
+    assert (fs.laplacian_facegamma_fused.launches,
+            fs.laplacian_facegamma_fused.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert kern.dtype == plain.dtype == torch.bfloat16 and bool(torch.isfinite(kern).all())
+    scale = float(plain.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert float((kern.float() - plain.float()).abs().max()) <= ulp
+    with pytest.raises(ValueError, match="gamma_x"):
+        fs.laplacian_facegamma_fused((gamma_f[0].float(),) + gamma_f[1:], pp, grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [125, 28])
+@pytest.mark.parametrize("nz,row", [(16, "padded"), (14, "scrap")])
+def test_rolls_kernel_many_taps(cuda, taps, nz, row):
+    """B3's tap loop (more than 27 taps) bit for bit against the plain roll
+    loop: the stencil_width=5 cube (125 taps, dz up to +-2) and its first
+    28, with C = 4, on the padded anchor rows (vector loads) and on
+    ncells + 1 rows with nz 14 (scalar loads)."""
+    offsets = cp.stencil_offsets(cp.CouplingConfig(stencil_width=5))[:taps]
+    C, shape = 4, (12, 10, nz)
+    ncells = int(np.prod(shape))
+    width = cp.anchor_row_length(ncells) if row == "padded" else ncells + 1
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    buf = torch.randn((taps * C, width), generator=gen, device=cuda)
+    bufT = buf[:, :ncells].view((taps, C) + shape)
+    plain = rolls.distribute_rolls_reference(bufT, offsets)
+    before = rolls.distribute_rolls.launches
+    kern = rolls.distribute_rolls(bufT, offsets)
+    torch.cuda.synchronize()
+    assert rolls.distribute_rolls.launches == before + 1
+    assert torch.equal(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcg", "mgpcg", "mgpcg_bf16"])
+def test_pcg_fixed_iters_reads_nothing_on_the_host(cuda, solver):
+    """`pcg(fixed_iters=)` with B2 in every matvec (use_pallas) runs its
+    iterations under `torch.cuda.set_sync_debug_mode("error")`, which
+    raises on any host read or synchronisation; with a budget of the while
+    loop's iterations + 3 it returns the while loop's live count and x."""
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+    grid = Grid.cube(32, 0.032)
+    bc = FieldBC.periodic()
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    gamma = 1.0 + 0.5 * torch.rand(grid.shape, generator=gen, device=cuda)
+    gamma_f = face_interp_all_padded(pad_scalar(gamma, bc))
+    b = torch.randn(grid.shape, generator=gen, device=cuda)
+    b = b - b.mean()
+    pad = pr.default_pad(bc)
+
+    def apply_A(x):
+        return pr.poisson_apply(x, gamma_f, grid, pad, use_pallas=True)
+
+    if solver == "pcg":
+        d = pr.poisson_diag(gamma_f, grid, bc)
+        M = lambda r: r / d  # noqa: E731
+    else:
+        M = pr.make_mg_preconditioner(gamma_f, grid, bc, pr.MGConfig(bf16=solver.endswith("bf16")),
+                                      use_pallas=True)
+    x0 = torch.zeros_like(b)
+    ref = pr.pcg(apply_A, b, x0, precond=M, tol=1e-5, maxiter=200)
+    n = int(ref.iters)
+    torch.cuda.synchronize()
+    launches = fs.laplacian_facegamma_fused.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pr.pcg(apply_A, b, x0, precond=M, tol=1e-5, maxiter=200, fixed_iters=n + 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fs.laplacian_facegamma_fused.launches > launches + n
+    assert int(out.iters) == n > 2
+    assert float((out.x - ref.x).abs().max()) <= 1e-6 * float(ref.x.abs().max())

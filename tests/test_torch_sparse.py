@@ -212,3 +212,34 @@ def test_anchor_rolls_padded_rows_match_jax(monkeypatch, support):
     assert strides == [tcp.anchor_row_length(ncells)] and strides[0] % 32 == 0
     assert ncells + 1 <= strides[0] < ncells + 33
     _close("deposit", out.numpy(), ref, 1e-5)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_gaussian_coupling_width5_matches_jax(n, monkeypatch):
+    """``stencil_width=5`` (the 125-cell cube) at 8^3 and 16^3 with
+    lag_alpha off (two deposits): the deposits go through B3's wrapper
+    with S = 125 (its CPU path, the plain roll loop); `found` equal, the
+    fields and forces within 1e-5 of their scale as at width 3."""
+    grid = Grid.cube(n, 1e-3 * n)
+    rng = np.random.RandomState(n)
+    pf = (rng.uniform(0.1e-3 * n, 0.9e-3 * n, (40, 3)), 1e-2 * rng.randn(40, 3),
+          1e-1 * rng.randn(40, 3), np.full(40, 4e-4), np.ones(40, bool))
+    pf = tuple(np.asarray(a, np.float32) if a.dtype != bool else a for a in pf)
+    F = (1e-2 * rng.randn(15, *grid.shape)).astype(np.float32)
+    cfg = jcp.CouplingConfig(gaussian=True, stencil_width=5)
+    calls = []
+    real = rolls.distribute_rolls
+    monkeypatch.setattr(rolls, "distribute_rolls",
+                        lambda b, o: calls.append(b.shape[0]) or real(b, o))
+    ref = jcp.gaussian_coupling(jcp.ParticleFields(*map(jnp.asarray, pf)),
+                                *map(jnp.asarray, F.reshape(5, 3, *grid.shape)), grid,
+                                PERIODIC, 1e-6, 1000.0, 5e-5, cfg)
+    out = tcp.gaussian_coupling(tcp.ParticleFields(*map(torch.as_tensor, pf)),
+                                *map(torch.as_tensor, F.reshape(5, 3, *grid.shape)),
+                                config_from(grid), PERIODIC, 1e-6, 1000.0, 5e-5,
+                                config_from(cfg))
+    assert calls == [125, 125]
+    np.testing.assert_array_equal(out.found.numpy(), np.asarray(ref.found))
+    assert int(out.found.sum()) == 40
+    for name in FIELDS:
+        _close(name, getattr(out, name).numpy(), getattr(ref, name), 1e-5)

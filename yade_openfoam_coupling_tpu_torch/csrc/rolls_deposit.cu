@@ -42,13 +42,24 @@
 //     scalar loads at the seams. Measured at 128^3 on an H100, as fast as
 //     a kernel that reads the same planes unshifted.
 //   * any other layout takes four scalar loads a tap, in the same kernel.
+//
+// Past 27 taps (the sparse exchange's `stencil_width = 5` cube has 125)
+// one more kernel takes up to kMaxLoopTaps: the same thread layout, rows,
+// loads and shuffles, with the taps read from a `__grid_constant__`
+// parameter (uniform across a warp: one constant-cache broadcast) and
+// walked in offset order in batches of kBatch, whose loads are all issued
+// before their adds. Each output still sums its taps in offset order from
+// 0.f, so it too agrees with the plain version bit for bit. At S = 125,
+// C = 4, 128^3: 4.19 GB read, 34 MB written, ~1.26 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxTaps = 27;
+constexpr int kMaxTaps = 27;            // template instances 1..27
+constexpr int kMaxLoopTaps = 640;       // the loop kernel: int16 taps fit 4 KB of parameters
+constexpr int kBatch = 8;               // the loop kernel's taps in flight
 // threads a block: measured as fast as 256 at (27, 4); smaller blocks
 // let an SM hold more of them at the 27-tap instance's register count
 constexpr int kBlock = 128;
@@ -57,6 +68,10 @@ constexpr unsigned int kMaxGridZ = 65535;
 
 struct Taps {
   int d[kMaxTaps][3];
+};
+
+struct LongTaps {
+  short d[kMaxLoopTaps][3];
 };
 
 struct Shape {
@@ -157,6 +172,67 @@ rolls_kernel(Taps taps, Shape sh, const float* __restrict__ buf, float* __restri
   }
 }
 
+// The same function for 28..kMaxLoopTaps taps: the tap loop runs in
+// batches of kBatch (loads of the batch, then its adds in offset order).
+template <bool ROT>
+__global__ void __launch_bounds__(kBlock)
+rolls_loop_kernel(const __grid_constant__ LongTaps taps, int n, Shape sh,
+                  const float* __restrict__ buf, float* __restrict__ out) {
+  const int lane = threadIdx.x, W = blockDim.x;
+  const int zq = blockIdx.x * blockDim.x + lane;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (zq >= sh.nzq || (!ROT && y >= sh.ny)) return;
+  const int yl = min(y, sh.ny - 1);
+  const int z0 = zq * kZ;
+  for (int cx = blockIdx.z; cx < sh.C * sh.nx; cx += gridDim.z) {
+    const int c = cx / sh.nx, x = cx - c * sh.nx;
+    float acc[kZ] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int o0 = 0; o0 < n; o0 += kBatch) {
+      float4 a[ROT ? kBatch : 1];
+      float v[ROT ? 1 : kBatch][kZ];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int o = o0 + b;
+        if (o >= n) break;
+        const int xs = wrap(x - taps.d[o][0], sh.nx), ys = wrap(yl - taps.d[o][1], sh.ny);
+        const float* row = buf + ((long long)o * sh.C + c) * sh.plane
+                           + ((long long)xs * sh.ny + ys) * sh.nz;
+        const int dz = taps.d[o][2];
+        if (ROT) {
+          a[ROT ? b : 0] = load_rot(row, lane, W, dz);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kZ; ++j)
+            v[ROT ? 0 : b][j] = z0 + j < sh.nz ? __ldg(row + wrap(z0 + j - dz, sh.nz)) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int o = o0 + b;
+        if (o >= n) break;
+        float t[kZ];
+        if (ROT) {
+          shift_rot(a[ROT ? b : 0], lane, W, taps.d[o][2], t);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kZ; ++j) t[j] = v[ROT ? 0 : b][j];
+        }
+#pragma unroll
+        for (int j = 0; j < kZ; ++j) acc[j] = acc[j] + t[j];
+      }
+    }
+    if (y >= sh.ny) continue;
+    float* dst = out + ((long long)cx * sh.ny + y) * sh.nz + z0;
+    if (ROT) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kZ; ++j)
+        if (z0 + j < sh.nz) dst[j] = acc[j];
+    }
+  }
+}
+
 // The instance for n taps, found by counting down from NT.
 template <int NT>
 cudaError_t launch_n(int n, bool rot, const Taps& taps, const Shape& sh, const float* buf,
@@ -188,16 +264,19 @@ int yofc_rolls_deposit(const int* iparams, const float* buf, float* out, void* s
   Shape sh;
   sh.C = iparams[1]; sh.nx = iparams[2]; sh.ny = iparams[3]; sh.nz = iparams[4];
   sh.plane = iparams[5];
-  if (n < 1 || n > kMaxTaps || sh.C < 1 || sh.nx < 1 || sh.ny < 1 || sh.nz < 1 ||
+  if (n < 1 || n > kMaxLoopTaps || sh.C < 1 || sh.nx < 1 || sh.ny < 1 || sh.nz < 1 ||
       sh.plane < (long long)sh.nx * sh.ny * sh.nz)
     return (int)cudaErrorInvalidValue;
   Taps taps = {};
+  LongTaps long_taps = {};
   const int dims[3] = {sh.nx, sh.ny, sh.nz};
   for (int o = 0; o < n; ++o) {
     for (int a = 0; a < 3; ++a) {
       const int d = iparams[6 + 3 * o + a];
-      if (d <= -dims[a] || d >= dims[a]) return (int)cudaErrorInvalidValue;
-      taps.d[o][a] = d;
+      if (d <= -dims[a] || d >= dims[a] || d < -32767 || d > 32767)
+        return (int)cudaErrorInvalidValue;
+      if (o < kMaxTaps) taps.d[o][a] = d;
+      long_taps.d[o][a] = (short)d;
     }
   }
   sh.nzq = (sh.nz + kZ - 1) / kZ;
@@ -210,7 +289,13 @@ int yofc_rolls_deposit(const int* iparams, const float* buf, float* out, void* s
   const dim3 grid((sh.nzq + bz - 1) / bz, (sh.ny + block.y - 1) / block.y,
                   (unsigned int)(planes < kMaxGridZ ? planes : kMaxGridZ));
   if (grid.y > kMaxGridZ) return (int)cudaErrorInvalidValue;
-  return (int)launch_n<kMaxTaps>(n, rot, taps, sh, buf, out, grid, block, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= kMaxTaps) return (int)launch_n<kMaxTaps>(n, rot, taps, sh, buf, out, grid, block, st);
+  if (rot)
+    rolls_loop_kernel<true><<<grid, block, 0, st>>>(long_taps, n, sh, buf, out);
+  else
+    rolls_loop_kernel<false><<<grid, block, 0, st>>>(long_taps, n, sh, buf, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -36,7 +36,7 @@ ENTRY_POINTS = {
                         "yofc_planes_fused": 8, "yofc_planes_interp": 7,
                         "yofc_planes_deposit": 7},
     "rolls_deposit": {"yofc_rolls_deposit": 4},
-    "laplacian": {"yofc_laplacian": 8},
+    "laplacian": {"yofc_laplacian": 8, "yofc_laplacian_bf16": 8},
     "dynwin_staging": {"yofc_dynwin_staging": 5},
 }
 

@@ -2,26 +2,24 @@
 `yade_openfoam_coupling_tpu/models/coupled.py`).
 
 One coupled step: Courant number and adaptive dt, the coupling inputs,
-the exchange (Gaussian: sparse, window or planes, the sparse one in
-particle chunks under ``particle_chunks > 1``, the planes one in x-slabs
-under ``planes_chunks > 1``; or the point-force one), the DEM substeps (on
+the exchange (Gaussian: sparse, window, planes or slots, the sparse one
+in particle chunks under ``particle_chunks > 1``, the planes one in
+x-slabs under ``planes_chunks > 1``; or the point-force one), the DEM substeps (on
 the frozen Verlet list, on a persistent list rebuilt when the drift since
 its build eats the skin margin, on one list built per step, or on all
 pairs; with the tangential spring history under ``shear_history``, and a
 substep count that follows the Rayleigh critical dt under
 ``dynamic_substeps``, a zero-dt tail up to ``n_dem_substeps``), then the
-fluid: PISO, or the turbulence correction and PIMPLE, both with the
+fluid: PISO, or the turbulence correction (laminar, kEqn, Smagorinsky
+or kEpsilon) and PIMPLE (explicit or implicit diffusion), both with the
 masked-cell obstacles of ``CaseConfig.solid`` (their masks built once per
-device); then the diagnostics. The adaptive fluid dt is clamped to
+device); then the diagnostics. The adaptive fluid dt is capped by the
+explicit-diffusion bound (not under implicit diffusion) and clamped to
 ``n_dem_substeps`` critical dts under ``enforce_critical_dt`` or
 ``dynamic_substeps``.
-`make_scan_fn` runs the steps as a Python loop, in chunks of [one
-Verlet-list rebuild -> K frozen-list steps] under ``list_reuse``, and
-stacks the per-step diagnostics along a leading axis.
-
-Not ported yet: the slots exchange (ROADMAP A12), implicit diffusion and
-the Smagorinsky and kEpsilon closures (A13); each raises before the first
-step.
+`make_step_fn` runs one step; `make_scan_fn` runs the steps as a Python
+loop, in chunks of [one Verlet-list rebuild -> K frozen-list steps] under
+``list_reuse``, and stacks the per-step diagnostics along a leading axis.
 """
 
 from __future__ import annotations
@@ -39,6 +37,7 @@ from ..ops.coupling_planes import (
     gaussian_coupling_planes,
     gaussian_coupling_planes_chunked,
 )
+from ..ops.coupling_slots import gaussian_coupling_slots
 from ..ops.coupling_window import gaussian_coupling_window
 from ..ops.grid import FieldBC, Grid
 from ..utils.diagnostics import (
@@ -104,26 +103,24 @@ class CaseConfig:
             built[key] = (self.solid, ob.build_masks(self.solid, self.bcs.periodic_axes(), device))
         return built[key][1]
 
+    def wall_layers(self, device):
+        """The kEpsilon wall functions' (mask, y) of `grid` and `bcs` on
+        ``device`` (`turbulence.wall_layers`), built once per device and
+        kept beside the fields, as `obstacle_masks` are."""
+        built = self.__dict__.setdefault("_wall_layers", {})
+        key = str(torch.device(device))
+        if key not in built:
+            built[key] = turb_mod.wall_layers(self.grid, self.bcs, device)
+        return built[key]
+
 
 def _check_supported(cfg: CaseConfig) -> None:
-    """Raise for the configurations the port does not run yet, before the
-    first step."""
+    """Raise for configurations no step can run, before the first step."""
     if cfg.solver not in ("piso", "pimple"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
-    _check_exchange(cfg.coupling)
-    if cfg.solver == "pimple":
-        if cfg.pimple.implicit_diffusion:
-            raise NotImplementedError(
-                "PIMPLEConfig.implicit_diffusion: not ported yet (ROADMAP A13)")
-        if cfg.turbulence.model in ("Smagorinsky", "kEpsilon"):
-            raise NotImplementedError(
-                f"turbulence model {cfg.turbulence.model!r}: not ported yet (ROADMAP A13)")
-
-
-def _check_exchange(c: cp.CouplingConfig) -> None:
-    if c.gaussian and c.exchange not in ("sparse", "window", "planes"):
-        raise NotImplementedError(
-            f"coupling exchange={c.exchange!r}: not ported yet (ROADMAP A12)")
+    if cfg.coupling.gaussian and cfg.coupling.exchange not in (
+            "sparse", "window", "planes", "slots"):
+        raise ValueError(f"unknown coupling exchange {cfg.coupling.exchange!r}")
 
 
 def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
@@ -154,7 +151,6 @@ def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
     in the JAX package."""
     from ..parallel.ctx import LOCAL
     ctx = ctx if ctx is not None else LOCAL
-    _check_exchange(cfg)
     curl_u, grad_p, div_tau, ddt_u = _coupling_inputs(fs, grid, bcs, tp.nu, dt, ctx, cfg)
     pf = cp.ParticleFields(ps.pos, ps.vel, ps.angvel, ps.radius, ps.active)
     if not cfg.gaussian:
@@ -165,6 +161,8 @@ def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
               else gaussian_coupling_planes)
     elif cfg.exchange == "window":
         fn = gaussian_coupling_window
+    elif cfg.exchange == "slots":
+        fn = gaussian_coupling_slots
     elif cfg.particle_chunks > 1:
         fn = cp.gaussian_coupling_chunked
     else:
@@ -262,9 +260,12 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
     else:
         co_mean, co_max = courant(fs.phi, grid, state.dt, ctx)
     if cfg.time.adjust_time_step:
-        # PISO's momentum diffusion is laminar: no nut in its bound
-        nut_max = ctx.max(torch.amax(tb.nut)) if cfg.solver == "pimple" else 0.0
-        dt_diff = diffusive_dt_bound(grid, tp.nu, nut_max)
+        if cfg.solver == "pimple" and cfg.pimple.implicit_diffusion:
+            dt_diff = None      # implicit diffusion has no stability bound
+        else:
+            # PISO's momentum diffusion is laminar: no nut in its bound
+            nut_max = ctx.max(torch.amax(tb.nut)) if cfg.solver == "pimple" else 0.0
+            dt_diff = diffusive_dt_bound(grid, tp.nu, nut_max)
         dt = new_dt(co_max, state.dt, cfg.time, dt_diff=dt_diff)
         if cfg.dem.enforce_critical_dt or cfg.dem.dynamic_substeps:
             # DEM stability: dt / n_dem_substeps <= the Rayleigh critical dt
@@ -340,7 +341,10 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
         fs2, info = piso_step(fs, grid, bcs, tp.nu, dt, cfg.piso, ctx=ctx, masks=masks)
         tb2 = tb
     else:
-        tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, cfg.turbulence, ctx=ctx)
+        tc = cfg.turbulence
+        walls = (cfg.wall_layers(dev) if tc.model == "kEpsilon" and tc.wall_functions
+                 else None)
+        tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, tc, ctx=ctx, walls=walls)
         g = torch.tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
         fs2, info = pimple_step(fs, grid, bcs, tp.nu, tb2.nut, g, dt, cfg.pimple, ctx=ctx,
                                 masks=masks)
@@ -374,6 +378,12 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
     new_state = SimState(fluid=fs2, particles=ps, turb=tb2, t=state.t + dt,
                          dt=dt, step=state.step + 1)
     return new_state, diag
+
+
+def make_step_fn(cfg: CaseConfig):
+    """A callable running one coupled step: state -> (state, diags)."""
+    _check_supported(cfg)
+    return lambda state: coupled_step(state, cfg)
 
 
 def _stack_diags(diags) -> StepDiagnostics:

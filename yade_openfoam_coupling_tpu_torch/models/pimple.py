@@ -1,13 +1,16 @@
-"""PIMPLE 4-way pressure-velocity solver (port of the explicit-diffusion,
-obstacle-free path of `yade_openfoam_coupling_tpu/models/pimple.py`).
+"""PIMPLE 4-way pressure-velocity solver (port of
+`yade_openfoam_coupling_tpu/models/pimple.py`).
 
 Phase momentum with the continuity and drag Sp terms in the implicit
 diagonal, convection and the alpha-weighted viscous stress (plus the
 dev2-transpose term) explicit; body forces enter through the face flux;
 the pressure equation laplacian(alphacf*rAUcf, p) == ddt(alphac) +
 div(alphacf*phiHbyA) is solved matrix-free. Masked-cell obstacles
-(``masks``) as in `piso.piso_step`; `implicit_diffusion` is not ported yet
-(ROADMAP A13).
+(``masks``) as in `piso.piso_step`. Under ``implicit_diffusion`` the
+viscous Laplacian moves into the matrix: the predictor solves three
+Helmholtz systems (`pressure.solve_helmholtz`, one per component) with
+the reconstructed force at the current p on the right-hand side, and
+HbyA = u* - rAU F_old.
 """
 
 from __future__ import annotations
@@ -55,9 +58,12 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
     this step's coupling output."""
     from ..parallel.ctx import LOCAL, LocalCtx
     ctx = ctx if ctx is not None else LOCAL
-    if cfg.implicit_diffusion:
-        raise NotImplementedError(
-            "PIMPLEConfig.implicit_diffusion: not ported yet (ROADMAP A13)")
+    if cfg.implicit_diffusion and cfg.full_stress:
+        raise ValueError("implicit_diffusion requires full_stress=False: the explicit "
+                         "dev2-transpose term re-imposes the diffusion dt cap")
+    if masks is not None and cfg.implicit_diffusion:
+        raise ValueError("masked-cell obstacles: the Helmholtz momentum solves do not carry "
+                         "the solid rows; use explicit diffusion")
     if masks is not None and not isinstance(ctx, LocalCtx):
         raise NotImplementedError(
             "masked-cell obstacles on a sharded ctx: not ported yet (ROADMAP A15)")
@@ -83,7 +89,10 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
         final = _outer == cfg.n_outer - 1
         up = ctx.pad_v(u, bcs.u)
         conv = st.div_phi_vector_padded(phi_alpha, up, grid, cfg.convection_scheme)
-        visc = st.laplacian_gamma_vector_padded(gamma_visc, up, grid)
+        if cfg.implicit_diffusion:
+            visc = torch.zeros_like(u)    # the Laplacian moves into the matrix
+        else:
+            visc = st.laplacian_gamma_vector_padded(gamma_visc, up, grid)
         if cfg.full_stress:
             G = st.grad_vector_padded(up, grid)
             C = st.dev2_transpose_stress(G, alpha * nu_eff)
@@ -92,11 +101,22 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
         # fvm::ddt(alphac, Uc): diagonal alpha^{n+1}/dt, source alpha^n u^n/dt
         A = alpha / dt - sp_cont - fs.u_source_drag
         H = alpha_old * fs.u / dt - conv + visc
-        if cfg.relax_u < 1.0 and not final:
-            lam = cfg.relax_u
-            H = H + ((1.0 - lam) / lam) * A[None] * u
-            A = A / lam
-        rAU = 1.0 / A
+        if cfg.implicit_diffusion:
+            # the full diagonal, the (interior-stencil) Laplacian rows included
+            D = A - pr.poisson_diag(gamma_visc, Grid(tuple(alpha.shape), grid.spacing,
+                                                     grid.origin), None)
+            if cfg.relax_u < 1.0 and not final:
+                lam = cfg.relax_u
+                H = H + ((1.0 - lam) / lam) * D[None] * u
+                A = A + ((1.0 - lam) / lam) * D
+                D = D / lam
+            rAU = 1.0 / D
+        else:
+            if cfg.relax_u < 1.0 and not final:
+                lam = cfg.relax_u
+                H = H + ((1.0 - lam) / lam) * A[None] * u
+                A = A / lam
+            rAU = 1.0 / A
         rAU_f = st.face_interp_all_padded(ctx.pad_s(rAU, _NEU))   # rAUcf
 
         # phicForces: body-force face flux
@@ -105,7 +125,25 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
         if masks is not None:
             # body forces push no flux through blocked faces
             phic_forces = ob.mask_flux(phic_forces, masks)
-        HbyA = rAU[None] * H
+        if cfg.implicit_diffusion:
+            # the predictor sees the reconstructed force at the current p
+            # (`UcEqn == fvc::reconstruct(...)`); its rAU image leaves HbyA,
+            # and the corrector adds it back at the new p
+            snp0 = st.face_grad_padded(ctx.pad_s(p, bcs.p), grid)
+            rec_F = st.reconstruct(tuple(phic_forces[a] / rAU_f[a] - snp0[a]
+                                         for a in range(3)))
+            comps = []
+            for c in range(3):
+                bc_c = bcs.u.component(c)
+                res_c = pr.solve_helmholtz(
+                    A, gamma_visc, H[c] + rec_F[c], u[c], grid, bc_c, cfg.momentum,
+                    pad=lambda f, _bc=bc_c: ctx.pad_s(f, _bc), reduce_sum=ctx.sum,
+                    precond_bc=None if isinstance(ctx, LocalCtx) else _precond_bc_for(bc_c, ctx))
+                comps.append(res_c.x)
+            u = torch.stack(comps)                  # the momentum predictor
+            HbyA = u - rAU[None] * rec_F
+        else:
+            HbyA = rAU[None] * H
 
         if cfg.momentum_predictor:
             snp = st.face_grad_padded(ctx.pad_s(p, bcs.p), grid)

@@ -12,7 +12,7 @@ kernel B3 (`rolls.distribute_rolls`) then spreads to the stencil cells.
 The point-force (icoFoamYade) exchange, `point_force_coupling`, runs the
 same deposit over the 8 trilinear corners {0,1}^3 of each particle. The
 window and planes exchanges live in `coupling_window.py` and
-`coupling_planes.py`. Not ported yet: the slots exchange (ROADMAP A12).
+`coupling_planes.py`, the slots exchange in `coupling_slots.py`.
 """
 
 from __future__ import annotations

@@ -10,11 +10,13 @@ have no trigonometric basis).
 Under ``use_pallas`` every matvec on a grid whose sides are all at least 8
 runs the fused kernel B2 (`fused_stencil.laplacian_facegamma_fused`), as
 the JAX package runs its Pallas kernel there; smaller grids take the plain
-stencil. CG's data-dependent exit is a host-side loop: the residual test
-reads one scalar per iteration (one device sync). `solve_pressure` takes
-the masked-cell obstacles (``solid=``). ``fixed_iters``, ``MGConfig.bf16``
-and `solve_helmholtz` (implicit diffusion) are not ported yet (ROADMAP
-A13).
+stencil (B2 also takes bfloat16, for the V-cycle under ``MGConfig.bf16``).
+CG's data-dependent exit is a host-side loop: the residual test reads one
+scalar per iteration (one device sync). With ``fixed_iters`` CG runs
+exactly that many iterations, the state frozen once converged, and reads
+nothing on the host. `solve_pressure` takes the masked-cell obstacles
+(``solid=``); `solve_helmholtz` solves the implicit momentum-diffusion
+systems.
 """
 
 from __future__ import annotations
@@ -28,9 +30,6 @@ import torch
 from .fused_stencil import laplacian_facegamma_fused
 from .grid import DIRICHLET, NEUMANN, PERIODIC, FieldBC, Grid, pad_scalar
 from .stencil import Flux, laplacian_facegamma_padded
-
-_A13 = "not ported yet (ROADMAP A13)"
-
 
 def default_pad(bc: FieldBC):
     return lambda f: pad_scalar(f, bc)
@@ -83,12 +82,20 @@ class CGResult(NamedTuple):
 
 def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         x0: torch.Tensor, *, precond=None, reduce_sum=_ident, tol: float = 1e-6,
-        atol: float = 1e-30, rel_tol: float = 0.0, maxiter: int = 500) -> CGResult:
+        atol: float = 1e-30, rel_tol: float = 0.0, maxiter: int = 500,
+        fixed_iters: int = 0) -> CGResult:
     """Preconditioned CG with the JAX package's tests: converged when
     |r| <= tol * max(|r0|, |b|), |r| <= atol or |r| <= rel_tol * |r0|;
     stops on breakdown (pAp >= 0 for the negative semi-definite operator)
     and on divergence (|r| > 4x the best seen). The exit test reads one
-    scalar per iteration on the host."""
+    scalar per iteration on the host.
+
+    ``fixed_iters > 0`` runs exactly that many iterations instead and
+    reads nothing on the host: once converged (or broken down, or
+    diverging) the state is frozen, alpha and beta masked to 0 and p, rz
+    and |r| held, so x is the while loop's whenever it converges within
+    the budget. ``done`` and the live-iteration count stay device tensors;
+    the count reports live iterations only."""
     M = precond if precond is not None else (lambda r: r)
 
     def gdot(a, bb):
@@ -111,23 +118,46 @@ def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
 
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
-    x, r, p, rz, rnorm, best = x0, r0, z0, rz0, rnorm0, rnorm0
-    it = 0
-    done = bool(converged(rnorm0))
-    while it < maxiter and not done:
-        it += 1
+
+    def step(x, r, p, rz, frozen):
+        """One CG iteration; ``frozen`` (a bool tensor, or None) masks the
+        update of a converged state."""
         Ap = apply_A(p)
         pAp = gdot(p, Ap)
         breakdown = pAp >= -1e-30 * torch.clamp(gdot(p, p), min=1e-30)
-        alpha = torch.where(breakdown, zero, rz / torch.where(pAp == 0.0, one, pAp))
+        stop = breakdown if frozen is None else breakdown | frozen
+        alpha = torch.where(stop, zero, rz / torch.where(pAp == 0.0, one, pAp))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
         rz_new = gdot(r, z)
-        beta = torch.where(breakdown, zero, rz_new / torch.where(rz == 0.0, one, rz))
-        p = z + beta * p
-        rz = rz_new
+        beta = torch.where(stop, zero, rz_new / torch.where(rz == 0.0, one, rz))
+        p_new = z + beta * p
         rnorm = torch.sqrt(gdot(r, r))
+        if frozen is not None:
+            p_new = torch.where(frozen, p, p_new)
+            rz_new = torch.where(frozen, rz, rz_new)
+        return x, r, p_new, rz_new, rnorm, breakdown
+
+    x, r, p, rz, rnorm, best = x0, r0, z0, rz0, rnorm0, rnorm0
+    if fixed_iters > 0:
+        done = converged(rnorm0)
+        it = torch.zeros((), dtype=torch.int32, device=b.device)
+        for _ in range(fixed_iters):
+            live = ~done
+            x, r, p, rz, rnorm_new, breakdown = step(x, r, p, rz, done)
+            rnorm = torch.where(done, rnorm, rnorm_new)
+            diverging = rnorm > 4.0 * best
+            best = torch.minimum(best, rnorm)
+            done = done | converged(rnorm) | breakdown | diverging
+            it = it + live.to(torch.int32)
+        return CGResult(x, it, rnorm, rnorm0)
+
+    it = 0
+    done = bool(converged(rnorm0))
+    while it < maxiter and not done:
+        it += 1
+        x, r, p, rz, rnorm, breakdown = step(x, r, p, rz, None)
         diverging = rnorm > 4.0 * best
         best = torch.minimum(best, rnorm)
         done = bool(converged(rnorm) | breakdown | diverging)
@@ -138,7 +168,8 @@ def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class MGConfig:
     """Multigrid V-cycle settings; same fields and defaults as the JAX
-    package (``bf16`` is not ported yet, ROADMAP A13)."""
+    package. ``bf16`` runs the V-cycle in bfloat16 (the residual cast in,
+    the correction cast out); the outer CG stays float32."""
 
     levels: int = 0
     pre_smooth: int = 2
@@ -157,8 +188,11 @@ def _restrict(f: torch.Tensor) -> torch.Tensor:
 
 
 def _prolong(c: torch.Tensor) -> torch.Tensor:
-    """Piecewise-constant prolongation (each coarse cell -> 2x2x2 fine)."""
-    return c.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+    """Piecewise-constant prolongation (each coarse cell -> 2x2x2 fine), as
+    one broadcast copy."""
+    nx, ny, nz = c.shape
+    return c[:, None, :, None, :, None].expand(nx, 2, ny, 2, nz, 2).reshape(
+        2 * nx, 2 * ny, 2 * nz)
 
 
 def _every_other(g: torch.Tensor, start: int, axis: int) -> torch.Tensor:
@@ -200,9 +234,10 @@ def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
                            use_pallas: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """A V-cycle M^-1 r for the face-gamma Poisson operator (the role of
     OpenFOAM's GAMG): damped-Jacobi or Chebyshev smoothing on every level,
-    `coarse_iters` smoothing sweeps on the coarsest."""
-    if cfg.bf16:
-        raise NotImplementedError(f"MGConfig.bf16: {_A13}")
+    `coarse_iters` smoothing sweeps on the coarsest. Under ``cfg.bf16``
+    the level coefficients and inverse diagonals are bfloat16 and the cycle
+    runs on the residual cast to bfloat16, B2 included (its bfloat16
+    entry); the correction returns in the residual's dtype."""
     levels = cfg.levels if cfg.levels > 0 else mg_levels_for(grid)
     gammas, grids = [gamma_f], [grid]
     for _ in range(levels - 1):
@@ -213,6 +248,10 @@ def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
     for g, gr in zip(gammas, grids):
         d = poisson_diag(g, gr, bc)
         inv_diags.append(1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d))
+    if cfg.bf16:
+        bf = torch.bfloat16
+        gammas = [tuple(g.to(bf) for g in gf) for gf in gammas]
+        inv_diags = [d.to(bf) for d in inv_diags]
 
     def apply_lv(lv, v):
         return poisson_apply(v, gammas[lv], grids[lv], pad, use_pallas=use_pallas)
@@ -262,6 +301,8 @@ def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
         x = x + _prolong(vcycle(lv + 1, _restrict(r)))
         return smooth(lv, x, b, cfg.post_smooth)
 
+    if cfg.bf16:
+        return lambda r: vcycle(0, r.to(torch.bfloat16)).to(r.dtype)
     return lambda r: vcycle(0, r)
 
 
@@ -358,6 +399,34 @@ class PressureSolverConfig:
     use_pallas: bool = False
 
 
+def solve_helmholtz(a_diag: torch.Tensor, gamma_f: Flux, rhs: torch.Tensor,
+                    x0: torch.Tensor, grid: Grid, bc: FieldBC,
+                    cfg: Optional[PressureSolverConfig] = None, *, pad=None,
+                    reduce_sum=_ident, precond_bc: Optional[FieldBC] = None) -> CGResult:
+    """Solve a_diag * x - div(gamma_f grad x) = rhs (a_diag > 0): the
+    implicit momentum-diffusion system (OpenFOAM's `fvm::laplacian(nuEff,
+    U)` inside the momentum solve). Positive definite, so it is negated
+    for `pcg`'s negative-definite guards; the nonzero-Dirichlet ghost
+    constant is folded into the right-hand side; Jacobi-preconditioned
+    (``cfg.solver`` is ignored). The matvec is B2 under ``cfg.use_pallas``,
+    as in `solve_pressure`."""
+    cfg = cfg if cfg is not None else PressureSolverConfig(solver="pcg")
+    pad = pad if pad is not None else default_pad(bc)
+
+    def op_affine(x):
+        return a_diag * x - poisson_apply(x, gamma_f, grid, pad, use_pallas=cfg.use_pallas)
+
+    bc_const = op_affine(torch.zeros_like(rhs))
+    mgrid = Grid(tuple(rhs.shape), grid.spacing, grid.origin)
+    pbc = precond_bc if precond_bc is not None else bc.homogeneous()
+    d = poisson_diag(gamma_f, mgrid, pbc) - a_diag        # diagonal of -op, < 0
+    inv_diag = 1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d)
+    return pcg(lambda x: bc_const - op_affine(x), bc_const - rhs, x0,
+               precond=lambda r: inv_diag * r, reduce_sum=reduce_sum,
+               tol=cfg.tol, atol=cfg.abs_tol, rel_tol=cfg.rel_tol,
+               maxiter=cfg.maxiter, fixed_iters=cfg.fixed_iters)
+
+
 def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
                    grid: Grid, bc: FieldBC,
                    cfg: PressureSolverConfig = PressureSolverConfig(), *,
@@ -372,8 +441,6 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
     zero; they become a scaled identity -s p (s the interior diagonal
     magnitude), the RHS and p0 are zeroed there, the preconditioner acts
     on the fluid subspace, and the nullspace mean runs over fluid cells."""
-    if cfg.fixed_iters:
-        raise NotImplementedError(f"fixed_iters={cfg.fixed_iters}: {_A13}")
     pad = pad if pad is not None else default_pad(bc)
     if nullspace is None:
         nullspace = not any(f.kind == DIRICHLET for pair in bc.faces for f in pair)
@@ -429,7 +496,7 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
 
     res = pcg(apply_A, rhs, p0, precond=M, reduce_sum=reduce_sum,
               tol=cfg.tol, atol=cfg.abs_tol, rel_tol=cfg.rel_tol,
-              maxiter=cfg.maxiter)
+              maxiter=cfg.maxiter, fixed_iters=cfg.fixed_iters)
     x = res.x
     if nullspace:
         x = x - _mean(x)

@@ -8,7 +8,9 @@ offset o's channels to cell + o:
     out[c] = sum_o roll(bufT[o, c], offsets[o])
 
 `distribute_rolls` runs the hand-written CUDA kernel of
-`csrc/rolls_deposit.cu` for CUDA tensors, or raises, and its plain PyTorch
+`csrc/rolls_deposit.cu` for CUDA tensors (an unrolled instance for each
+count of 1 to 27 taps, a batched tap loop for 28 to 640: the
+``stencil_width=5`` cube has 125), or raises, and its plain PyTorch
 version `distribute_rolls_reference` (the sequential roll loop of the JAX
 package's `coupling._deposit_anchor_rolls`) for CPU tensors;
 ``distribute_rolls.launches`` counts kernel launches.
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 _KERNEL = "rolls kernel"
-_MAX_TAPS = 27
+_MAX_TAPS = 640
 
 
 def distribute_rolls_reference(bufT: torch.Tensor, offsets: np.ndarray) -> torch.Tensor:
@@ -38,7 +40,7 @@ def _plane_stride(bufT: torch.Tensor, offsets: np.ndarray) -> int:
     what the kernel takes: a float32 (S, C, nx, ny, nz) view whose grid
     planes are contiguous and whose S*C planes are evenly strided (an
     offset-major scatter buffer, possibly with trailing columns: the scrap
-    bin and the padding to 32 floats), and at most 27 offsets, each
+    bin and the padding to 32 floats), and at most 640 offsets, each
     shorter than its axis. A dim of size 1 has no meaningful stride, so
     the plane stride is read from a dim that has more than one plane. The
     kernel reads a layout whose rows start on 16 bytes (nz and the stride

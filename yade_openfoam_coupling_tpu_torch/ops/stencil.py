@@ -2,7 +2,8 @@
 the main-path part of `yade_openfoam_coupling_tpu/ops/stencil.py`).
 
 ``*_padded`` operators consume arrays that already carry a one-cell ghost
-shell and contain no BC logic. Shapes: scalars ``(nx,ny,nz)``; vectors
+shell and contain no BC logic; the unpadded forms (`grad_scalar`, `flux`,
+`laplacian`, ...) pad with the field's BCs first. Shapes: scalars ``(nx,ny,nz)``; vectors
 ``(3,nx,ny,nz)``; tensors ``(3,3,nx,ny,nz)`` with ``T[i,j] = dU_i/dx_j``;
 face fluxes are 3-tuples on x/y/z faces.
 """
@@ -13,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from .grid import DIRICHLET, NEUMANN, SLIP, FieldBC, Grid
+from .grid import DIRICHLET, NEUMANN, SLIP, FieldBC, Grid, pad_scalar, pad_vector
 
 Flux = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -57,9 +58,17 @@ def grad_scalar_padded(fp: torch.Tensor, grid: Grid) -> torch.Tensor:
     return torch.stack(comps)
 
 
+def grad_scalar(f: torch.Tensor, bc: FieldBC, grid: Grid) -> torch.Tensor:
+    return grad_scalar_padded(pad_scalar(f, bc), grid)
+
+
 def grad_vector_padded(up: torch.Tensor, grid: Grid) -> torch.Tensor:
     """Velocity-gradient tensor G[i,j] = dU_i/dx_j: (3,3,nx,ny,nz)."""
     return torch.stack([grad_scalar_padded(up[c], grid) for c in range(3)])
+
+
+def grad_vector(u: torch.Tensor, bc: FieldBC, grid: Grid) -> torch.Tensor:
+    return grad_vector_padded(pad_vector(u, bc), grid)
 
 
 def curl_from_grad(G: torch.Tensor) -> torch.Tensor:
@@ -80,15 +89,28 @@ def face_interp_all_padded(fp: torch.Tensor) -> Flux:
     return tuple(face_interp_padded(fp, a) for a in range(3))
 
 
+def face_interp(f: torch.Tensor, bc: FieldBC, grid: Grid) -> Flux:
+    """``fvc::interpolate`` to all faces."""
+    return face_interp_all_padded(pad_scalar(f, bc))
+
+
 def flux_padded(up: torch.Tensor, grid: Grid) -> Flux:
     """``fvc::flux(U)`` — face-normal velocity from a padded vector field."""
     return tuple(face_interp_padded(up[a], a) for a in range(3))
+
+
+def flux(u: torch.Tensor, bc: FieldBC, grid: Grid) -> Flux:
+    return flux_padded(pad_vector(u, bc), grid)
 
 
 def face_grad_padded(fp: torch.Tensor, grid: Grid) -> Flux:
     """``fvc::snGrad`` — normal gradient (f_hi - f_lo)/h at every face."""
     return tuple(_diff(_strip_other_axes(fp, axis), axis) / grid.spacing[axis]
                  for axis in range(3))
+
+
+def face_grad(f: torch.Tensor, bc: FieldBC, grid: Grid) -> Flux:
+    return face_grad_padded(pad_scalar(f, bc), grid)
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +123,10 @@ def div_flux(phi: Flux, grid: Grid) -> torch.Tensor:
     for axis in range(3):
         out = out + _diff(phi[axis], axis) / grid.spacing[axis]
     return out
+
+
+def div_vector(u: torch.Tensor, bc: FieldBC, grid: Grid) -> torch.Tensor:
+    return div_flux(flux(u, bc, grid), grid)
 
 
 def _face_value(fp_c: torch.Tensor, axis: int, phi_ax: torch.Tensor, scheme: str) -> torch.Tensor:
@@ -148,8 +174,16 @@ def laplacian_padded(fp: torch.Tensor, grid: Grid) -> torch.Tensor:
     return out
 
 
+def laplacian(f: torch.Tensor, bc: FieldBC, grid: Grid) -> torch.Tensor:
+    return laplacian_padded(pad_scalar(f, bc), grid)
+
+
 def laplacian_vector_padded(up: torch.Tensor, grid: Grid) -> torch.Tensor:
     return torch.stack([laplacian_padded(up[c], grid) for c in range(3)])
+
+
+def laplacian_vector(u: torch.Tensor, bc: FieldBC, grid: Grid) -> torch.Tensor:
+    return laplacian_vector_padded(pad_vector(u, bc), grid)
 
 
 def laplacian_facegamma_padded(gamma_f: Flux, fp: torch.Tensor, grid: Grid) -> torch.Tensor:
@@ -160,6 +194,18 @@ def laplacian_facegamma_padded(gamma_f: Flux, fp: torch.Tensor, grid: Grid) -> t
         g = _diff(_strip_other_axes(fp, axis), axis) / grid.spacing[axis]
         out = out + _diff(gamma_f[axis] * g, axis) / grid.spacing[axis]
     return out
+
+
+def laplacian_facegamma_scalar_padded(gamma_f: Flux, fp: torch.Tensor,
+                                      grid: Grid) -> torch.Tensor:
+    return laplacian_facegamma_padded(gamma_f, fp, grid)
+
+
+def laplacian_gamma(gamma: torch.Tensor, f: torch.Tensor, gamma_bc: FieldBC, f_bc: FieldBC,
+                    grid: Grid) -> torch.Tensor:
+    """div(interpolate(gamma) grad f), each field padded with its own BCs."""
+    return laplacian_facegamma_padded(face_interp(gamma, gamma_bc, grid),
+                                      pad_scalar(f, f_bc), grid)
 
 
 def laplacian_gamma_vector_padded(gamma_f: Flux, up: torch.Tensor, grid: Grid) -> torch.Tensor:
