@@ -42,6 +42,10 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
   * the slots slice: the window slice's configuration with the slot-table
     exchange (its deposit is B3), and the sparse exchange at
     `stencil_width=5` (B3 with 125 taps) on a 96^3 grid;
+B2's bf16 entry is held bit for bit against the plain stencil at every
+level of the 128^3 V-cycle on which it runs and through one whole bf16
+V-cycle, and the `use_pallas` chunks (f32 and bf16 V-cycle) print the
+card's busy share over one pressure solve (`torch.profiler`). It
 then holds B1, B4 and B6 at slot capacities 9 and 16 against their plain
 versions on a crowded lattice, the 4-slab chunked planes exchange against
 the whole-grid one, checks the bench's health conditions and that each
@@ -462,11 +466,13 @@ def laplacian_kernel_phase(device):
             **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
 
 
-def laplacian_bf16_kernel_phase(device):
+def laplacian_bf16_kernel_phase(device, card):
     """B2's bf16 entry against the plain stencil run on the same bf16
-    tensors at 128^3 (the V-cycle's fine level under MGConfig.bf16): bit
-    for bit, or within 1 bf16 ulp of the output's scale. No single PyTorch
-    call computes it (library_ms null)."""
+    tensors, torch.equal, at every level of the 128^3 V-cycle on which it
+    runs (128, 64, 32, 16, 8), with the channel's ghosts; each level's
+    times (host-inclusive and device only) and bound printed, the 128^3
+    level's returned. No single PyTorch call computes it (library_ms
+    null)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
     from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
@@ -474,32 +480,108 @@ def laplacian_bf16_kernel_phase(device):
     from yade_openfoam_coupling_tpu_torch.ops.stencil import laplacian_facegamma_padded
 
     bf = torch.bfloat16
-    grid = Grid.cube(NX, 1e-3 * NX)
-    gen = torch.Generator(device=device).manual_seed(4)
-    pp = pad_scalar(torch.randn(grid.shape, generator=gen, device=device).to(bf),
-                    FluidBCs.channel_z().p)
+    levels = {}
     n = NX
-    gamma_f = tuple((0.5 + torch.rand(s, generator=gen, device=device)).to(bf)
-                    for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
-    plain = laplacian_facegamma_padded(gamma_f, pp, grid)
-    kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
-    if kern.dtype != bf or not bool(torch.isfinite(kern).all()):
-        raise AssertionError(f"laplacian_bf16: dtype {kern.dtype} or non-finite values")
-    err = float((kern.float() - plain.float()).abs().max())
-    scale = float(plain.float().abs().max())
-    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
-    if not err <= ulp:
-        raise AssertionError(f"laplacian_bf16 disagrees with its plain version: max err "
-                             f"{err:.3e} > 1 bf16 ulp of the scale ({ulp:.3e})")
-    ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50)
-    dev_ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50,
-                     device_only=True)
-    plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
-    print(f"kernel laplacian_bf16 ({NX}^3): max_abs_err {err:.3e} ("
-          f"{'bit for bit' if err == 0 else 'within 1 bf16 ulp'}, ulp {ulp:.3e}); kernel "
-          f"{ms:.4f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
+    while n >= 8:
+        grid = Grid.cube(n, 1e-3 * NX)
+        gen = torch.Generator(device=device).manual_seed(4)
+        pp = pad_scalar(torch.randn(grid.shape, generator=gen, device=device).to(bf),
+                        FluidBCs.channel_z().p)
+        gamma_f = tuple((0.5 + torch.rand(s, generator=gen, device=device)).to(bf)
+                        for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+        plain = laplacian_facegamma_padded(gamma_f, pp, grid)
+        kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
+        if kern.dtype != bf or not bool(torch.isfinite(kern).all()):
+            raise AssertionError(f"laplacian_bf16 {n}^3: dtype {kern.dtype} or non-finite values")
+        if not torch.equal(kern, plain):
+            err = float((kern.float() - plain.float()).abs().max())
+            raise AssertionError(f"laplacian_bf16 {n}^3 is not bit for bit with its plain "
+                                 f"version: max err {err:.3e}")
+        ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50)
+        dev_ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50,
+                         device_only=True)
+        plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
+        levels[n] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
+        print(f"kernel laplacian_bf16 ({n}^3): bit for bit; kernel {ms:.4f} ms ({dev_ms:.4f} "
+              f"ms device only), plain {plain_ms:.4f} ms, bound {levels[n]['bound_ms']:.4f} ms "
+              f"({levels[n]['bound_by']}), device share of bound "
+              f"{levels[n]['bound_ms'] / dev_ms:.2f} [{card}]", flush=True)
+        n //= 2
+    return levels[NX]
+
+
+def bf16_vcycle_phase(device, card):
+    """One whole bf16 V-cycle (MGConfig.bf16) of the 128^3 channel's
+    pressure operator on the card, through B2's bf16 entry (every level of
+    sides >= 8) and through the plain stencil: the two corrections are
+    torch.equal."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+    from yade_openfoam_coupling_tpu_torch.ops.grid import Grid, pad_scalar
+    from yade_openfoam_coupling_tpu_torch.ops.stencil import face_interp_all_padded
+
+    grid = Grid.cube(NX, 1e-3 * NX)
+    gen = torch.Generator(device=device).manual_seed(5)
+    gamma = 0.5 + torch.rand(grid.shape, generator=gen, device=device)
+    bc = FluidBCs.channel_z().p.homogeneous()
+    gamma_f = face_interp_all_padded(pad_scalar(gamma, FluidBCs.channel_z().p.homogeneous()))
+    r = torch.randn(grid.shape, generator=gen, device=device)
+    cfg = pr.MGConfig(bf16=True)
+    M_kern = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=True)
+    M_plain = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=False)
+    before = fs.laplacian_facegamma_fused.launches_bf16
+    kern = M_kern(r)
+    per_cycle = fs.laplacian_facegamma_fused.launches_bf16 - before
+    plain = M_plain(r)
+    if per_cycle == 0 or not bool(torch.isfinite(kern).all()) or not torch.equal(kern, plain):
+        raise AssertionError(f"bf16 V-cycle: {per_cycle} bf16 launches; the kernel's "
+                             f"correction differs from the plain stencil's by "
+                             f"{float((kern - plain).abs().max()):.3e}")
+    ms_kern = cuda_ms(lambda: M_kern(r), 10)
+    ms_plain = cuda_ms(lambda: M_plain(r), 10)
+    print(f"bf16 V-cycle at {NX}^3: kernel path == plain path (torch.equal), {per_cycle} B2 "
+          f"bf16 launches a cycle; {ms_kern:.3f} ms a cycle (plain stencil {ms_plain:.3f} ms) "
+          f"[{card}]", flush=True)
+
+
+def solve_busy_share(solves, card, label):
+    """The card's busy share over one pressure solve: the longest `pcg`
+    call that `solves` (a SolveCounter) saw, run again, its wall time
+    (host clock, synchronised) against the summed device time of its
+    kernels in a `torch.profiler` trace of another run of it (one stream:
+    the kernels do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+
+    a, kw = solves.longest
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pr.pcg(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = 1e3 * float(np.median(walls))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pr.pcg(*a, **kw)
+        torch.cuda.synchronize()
+    dev_us, n_kernels = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            dev_us += t
+            n_kernels += e.count
+    share = dev_us / 1e3 / wall_ms
+    print(f"{label}: one pressure solve ({int(res.iters)} CG iterations) {wall_ms:.3f} ms on "
+          f"the host clock, {dev_us / 1e3:.3f} ms of device time in {n_kernels} launches: "
+          f"card busy {share:.3f} of the solve [{card}]", flush=True)
+    if dev_us <= 0:
+        raise AssertionError(f"{label}: the profiler saw no device time in a solve")
+    return share
 
 
 def dynwin_kernel_phase(device, label, dat, nch, ny, nz):
@@ -841,10 +923,13 @@ class SolveCounter:
     """Collects the iteration counts (device tensors, read after the run)
     of every call of `pressure.<name>` while active; for `pcg` calls with
     a fixed budget, runs them under `torch.cuda.set_sync_debug_mode
-    ("error")`, which raises on any host read or synchronisation."""
+    ("error")`, which raises on any host read or synchronisation. Keeps
+    the arguments of the first call with the most iterations among those
+    without a budget (`longest`; their while loop reads the count anyway)."""
 
     def __init__(self, name):
         self.name, self.iters, self.fixed_calls = name, [], 0
+        self.longest, self.most = None, -1
 
     def __enter__(self):
         import torch
@@ -861,6 +946,8 @@ class SolveCounter:
                     torch.cuda.set_sync_debug_mode("default")
             else:
                 res = self.fn(*a, **kw)
+                if int(res.iters) > self.most:
+                    self.longest, self.most = (a, kw), int(res.iters)
             self.iters.append(res.iters)
             return res
         setattr(pressure, self.name, run)
@@ -1164,7 +1251,8 @@ def main() -> int:
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_shape="cube")), 4)
     kern["rolls_deposit_point_force"] = rolls_kernel_phase(device, cp.TRILINEAR_CORNERS, 3)
     kern["laplacian"] = laplacian_kernel_phase(device)
-    kern["laplacian_bf16"] = laplacian_bf16_kernel_phase(device)
+    kern["laplacian_bf16"] = laplacian_bf16_kernel_phase(device, smi)
+    bf16_vcycle_phase(device, smi)
     kern["rolls_deposit_125"] = rolls_kernel_phase(
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_width=5)), 4)
     kern["rolls_deposit_slots"] = rolls_kernel_phase(
@@ -1236,11 +1324,14 @@ def main() -> int:
     slice_phase(scfg, device, smi, "Smagorinsky slice", {"rolls_deposit": 2}, timed_runs=1)
     stage_phase(scfg, device, smi, "Smagorinsky slice")
     bcfg = fluid_config(pcfg_pal, bf16=True)
-    runs, iters_bf = slice_phase(bcfg, device, smi, "CLI slice, use_pallas, bf16 V-cycle",
-                                 {"rolls_deposit": 2, "laplacian_bf16": 1}, timed_runs=1)
+    with SolveCounter("pcg") as bsolves:
+        runs, iters_bf = slice_phase(bcfg, device, smi, "CLI slice, use_pallas, bf16 V-cycle",
+                                     {"rolls_deposit": 2, "laplacian_bf16": 1}, timed_runs=1)
     launches["laplacian_bf16"] = runs["laplacian_bf16"]
     print(f"CLI slice p_iters per step, use_pallas: f32 V-cycle {iters_pal.tolist()}, bf16 "
           f"V-cycle {iters_bf.tolist()}", flush=True)
+    solve_busy_share(solves, smi, "CLI slice, use_pallas, f32 V-cycle")
+    solve_busy_share(bsolves, smi, "CLI slice, use_pallas, bf16 V-cycle")
     stage_phase(bcfg, device, smi, "CLI slice, use_pallas, bf16 V-cycle")
     budget = int(solves.counts().max()) + 3
     fcfg = fluid_config(pcfg_pal, fixed_iters=budget)

@@ -751,6 +751,79 @@ def test_laplacian_bf16_kernel_matches_plain(cuda, shape):
         fs.laplacian_facegamma_fused((gamma_f[0].float(),) + gamma_f[1:], pp, grid)
 
 
+_BF16_GHOSTS = {
+    "mixed": FieldBC(((FaceBC("periodic"),) * 2, (FaceBC(NEUMANN),) * 2,
+                      (FaceBC(DIRICHLET, 0.3), FaceBC(DIRICHLET, -0.2)))),
+    "dirichlet": FieldBC(((FaceBC(DIRICHLET, -0.4), FaceBC(DIRICHLET, 0.1)),
+                          (FaceBC(DIRICHLET, 0.25), FaceBC(DIRICHLET, -0.3)),
+                          (FaceBC(DIRICHLET, 0.5), FaceBC(DIRICHLET, 0.2)))),
+    "neumann": FieldBC.box(NEUMANN),
+}
+
+
+def _misaligned_copy(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 4-byte
+    boundary (the kernel's 2-byte path)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 4 == 2
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ghosts", sorted(_BF16_GHOSTS))
+@pytest.mark.parametrize("shape", [(128, 128, 128), (64, 64, 64), (32, 32, 32), (16, 16, 16),
+                                   (8, 8, 8), (13, 10, 17), (20, 44, 70), (24, 12, 70)])
+def test_laplacian_bf16_kernel_bit_for_bit(cuda, shape, ghosts):
+    """B2's bf16 entry equals the plain stencil run on the same bf16 tensors
+    (torch.equal) at every V-cycle level of a 128^3 grid, at (13, 10, 17)
+    (odd nz: pairs that straddle the row's end, 2-byte loads), and where nz
+    is not a multiple of a block's 64 z cells nor ny of its 8 y rows (20,
+    44, 70), under mixed (periodic x, Neumann y, Dirichlet z), all
+    nonzero-Dirichlet and all Neumann ghosts; and again with every array
+    starting 2 bytes past a 4-byte boundary (the 2-byte path on even nz)."""
+    grid = Grid.box(shape, tuple(1e-3 * (1 + 0.25 * a) * n for a, n in enumerate(shape)))
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    p = torch.randn(grid.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    gamma = 1.0 + 0.5 * torch.rand(grid.shape, generator=gen, device=cuda)
+    gamma_f = tuple(g.to(torch.bfloat16)
+                    for g in face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN))))
+    pp = pad_scalar(p, _BF16_GHOSTS[ghosts])
+    plain = laplacian_facegamma_padded(gamma_f, pp, grid)
+    before = fs.laplacian_facegamma_fused.launches_bf16
+    kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
+    odd = fs.laplacian_facegamma_fused(tuple(_misaligned_copy(g) for g in gamma_f),
+                                       _misaligned_copy(pp), grid)
+    torch.cuda.synchronize()
+    assert fs.laplacian_facegamma_fused.launches_bf16 == before + 2
+    assert kern.dtype == torch.bfloat16 and bool(torch.isfinite(kern).all())
+    assert torch.equal(kern, plain) and torch.equal(odd, plain)
+
+
+@pytest.mark.cuda
+def test_bf16_vcycle_kernel_equals_plain(cuda):
+    """A whole bf16 V-cycle (MGConfig.bf16) with B2's bf16 entry on every
+    level of sides >= 8 gives the same correction, torch.equal, as the
+    same V-cycle on the plain stencil, on a 64^3 channel."""
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+    grid = Grid.cube(64, 0.064)
+    bc = FieldBC(((FaceBC("periodic"),) * 2, (FaceBC("periodic"),) * 2,
+                  (FaceBC(NEUMANN),) * 2))
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    gamma = 1.0 + 0.5 * torch.rand(grid.shape, generator=gen, device=cuda)
+    gamma_f = face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN)))
+    r = torch.randn(grid.shape, generator=gen, device=cuda)
+    cfg = pr.MGConfig(bf16=True)
+    before = fs.laplacian_facegamma_fused.launches_bf16
+    kern = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=True)(r)
+    launched = fs.laplacian_facegamma_fused.launches_bf16 - before
+    plain = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=False)(r)
+    torch.cuda.synchronize()
+    assert launched > 0 and fs.laplacian_facegamma_fused.launches_bf16 == before + launched
+    assert bool(torch.isfinite(kern).all()) and torch.equal(kern, plain)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("taps", [125, 28])
 @pytest.mark.parametrize("nz,row", [(16, "padded"), (14, "scrap")])

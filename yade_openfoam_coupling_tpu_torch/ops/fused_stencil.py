@@ -9,10 +9,15 @@ for CUDA tensors, or raises, and its plain PyTorch version, the port's
 dtype, ``laplacian_facegamma_fused.launches_bf16`` the bfloat16 ones (the
 V-cycle under `MGConfig.bf16`).
 `pressure.poisson_apply(..., use_pallas=True)` calls it where the JAX
-package calls its Pallas kernel.
+package calls its Pallas kernel. The kernel's parameter arrays (the shape,
+the bf16 entry's launch geometry, 1/h) are built once per shape, spacing
+and SM count, read-only (`_params`).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -21,6 +26,49 @@ from .grid import Grid
 from .stencil import Flux, laplacian_facegamma_padded
 
 _KERNEL = "laplacian kernel"
+BF16_THREADS = 256      # the bf16 entry's threads a block
+BF16_BLOCKS_PER_SM = 4  # the blocks its grid aims to give each SM
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def bf16_geometry(shape: Tuple[int, int, int], n_sm: int) -> Tuple[int, ...]:
+    """The bf16 entry's launch: (tz, ty, bz, by, n_slab, slab). A block is
+    tz x ty threads, each owning cells 2t and 2t+1 of its z tile of 2 tz
+    cells and one row of its y tile of ty rows; bz x by blocks tile a plane,
+    and the x axis is cut into n_slab slabs of `slab` planes (the last may
+    be shorter, none is empty), enough that the grid gives each of the
+    card's n_sm SMs about BF16_BLOCKS_PER_SM blocks."""
+    nx, ny, nz = shape
+    pairs = -(-nz // 2)
+    tz = min(32, _pow2_at_least(pairs))
+    ty = min(BF16_THREADS // tz, _pow2_at_least(ny))
+    bz, by = -(-pairs // tz), -(-ny // ty)
+    n_slab = min(nx, max(1, -(-BF16_BLOCKS_PER_SM * n_sm // (bz * by))))
+    slab = -(-nx // n_slab)
+    return tz, ty, bz, by, -(-nx // slab), slab
+
+
+@functools.lru_cache(maxsize=64)
+def _params(shape: Tuple[int, int, int], spacing: Tuple[float, float, float],
+            n_sm: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's read-only host parameters: int32 (nx, ny, nz, then the
+    bf16 entry's launch geometry, `bf16_geometry`), and float32 1/h per
+    axis. PyTorch divides a CUDA float or bf16 tensor by a Python float as
+    a product with the reciprocal taken in double and rounded to float32:
+    the plain version's rounding."""
+    ip = np.asarray([*shape, *bf16_geometry(shape, n_sm)], np.int32)
+    fp = np.asarray([1.0 / h for h in spacing], np.float32)
+    ip.setflags(write=False)
+    fp.setflags(write=False)
+    return ip, fp
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(gamma_f: Flux, pp: torch.Tensor) -> None:
@@ -51,14 +99,12 @@ def laplacian_facegamma_fused(gamma_f: Flux, pp: torch.Tensor, grid: Grid) -> to
     if pp.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {pp.device}")
     from ..kernels import call
-    nx, ny, nz = (s - 2 for s in pp.shape)
-    ip = np.asarray([nx, ny, nz], np.int32)
-    # PyTorch divides a CUDA float or bf16 tensor by a Python float as a
-    # product with the reciprocal taken in double and rounded to float32:
-    # the plain version's rounding
-    fp = np.asarray([1.0 / h for h in grid.spacing], np.float32)
+    shape = tuple(s - 2 for s in pp.shape)
+    ip, fp = _params(shape, tuple(float(h) for h in grid.spacing),
+                     _sm_count(pp.device.index if pp.device.index is not None
+                               else torch.cuda.current_device()))
     bf16 = pp.dtype == torch.bfloat16
-    out = torch.empty((nx, ny, nz), dtype=pp.dtype, device=pp.device)
+    out = torch.empty(shape, dtype=pp.dtype, device=pp.device)
     call("laplacian", "yofc_laplacian_bf16" if bf16 else "yofc_laplacian", _KERNEL, ip, fp,
          pp, *gamma_f, out, device=pp.device)
     laplacian_facegamma_fused.launches += 1

@@ -8,7 +8,9 @@ its two paths' shapes, 27 taps x 4 channels (the sparse exchange) and 8 x 3
 (the point-force exchange), on a seeded anchor buffer laid out as the
 timed tree's `_deposit_anchor_rolls` lays it out. Then B7 (`stage_planes`
 of `scripts/proto_dynwin.py`, dynamic) at the prototype's shape and at the
-window exchange's (this lattice's window value and y rows).
+window exchange's (this lattice's window value and y rows). Then B2
+(`fused_stencil.laplacian_facegamma_fused`), float32 and bf16, on seeded p
+and face coefficients at the V-cycle's 128^3 and 64^3 levels.
 
     python yade_openfoam_coupling_tpu_torch/scripts/exchange_timing.py [--root DIR] [--only S]
 
@@ -178,6 +180,16 @@ def main(argv=None) -> int:
                      rounding_mode="floor").to(torch.int32)
     calls["dynwin_staging (window shape)"] = lambda: dw.stage_planes(wdat, wnch, NX, NX,
                                                                      dw.W_CHUNK, True)
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
+    for n in (NX, NX // 2):
+        lgrid = Grid.cube(n, 1e-3 * n)
+        pp = torch.randn((n + 2,) * 3, generator=gen, device=dev)
+        gf = tuple(0.5 + torch.rand(s, generator=gen, device=dev)
+                   for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+        for label, dt in (("laplacian", torch.float32), ("laplacian_bf16", torch.bfloat16)):
+            lpp, lgf = pp.to(dt), tuple(g.to(dt) for g in gf)
+            calls[f"{label} ({n}^3)"] = (
+                lambda lpp=lpp, lgf=lgf, lgrid=lgrid: fs.laplacian_facegamma_fused(lgf, lpp, lgrid))
     calls = {k: v for k, v in calls.items() if args.only in k}
 
     if args.profile and not args.only:
