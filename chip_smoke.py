@@ -42,6 +42,17 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
   * the slots slice: the window slice's configuration with the slot-table
     exchange (its deposit is B3), and the sparse exchange at
     `stencil_width=5` (B3 with 125 taps) on a 96^3 grid;
+  * the slab-sharded path (`parallel/`): the window slice's configuration
+    through `make_sharded_scan` on a one-rank NCCL mesh (20 steps, two
+    chunks) against `make_scan_fn` from the same state by pid, its
+    ms/step beside the single-device one (timed in turns) and a
+    `PhaseTimer` split; two ranks sharing the card on gloo (10 steps,
+    halos staged through host memory) against the same single-device run;
+    one 10-step chunk each of the sharded sparse (B3 through the slab
+    deposit), planes (B4) and two-kernel planes (B5 + B6) exchanges and of
+    the window slice with mgpcg under `use_pallas` (B2 on the ring-padded
+    slab); each sharded kernel against its plain version at the slab's
+    shapes;
 B2's bf16 entry is held bit for bit against the plain stencil at every
 level of the 128^3 V-cycle on which it runs and through one whole bf16
 V-cycle, and the `use_pallas` chunks (f32 and bf16 V-cycle) print the
@@ -62,6 +73,7 @@ when there is no CUDA device, when a kernel does not build or disagrees,
 or when any check fails.
 """
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -401,21 +413,30 @@ def rolls_kernel_phase(device, offsets, C):
     function and which the port does not use."""
     import torch
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
-    from yade_openfoam_coupling_tpu_torch.ops import rolls
 
     S = len(offsets)
-    shape = (NX,) * 3
     ncells = NX ** 3
     gen = torch.Generator(device=device).manual_seed(3)
     buf = torch.randn((S * C, cp.anchor_row_length(ncells)), generator=gen, device=device)
-    bufT = buf[:, :ncells].view((S, C) + shape)
+    return rolls_entry(buf[:, :ncells].view((S, C) + (NX,) * 3), offsets)
+
+
+def rolls_entry(bufT, offsets):
+    """B3 on one (S, C, nx, ny, nz) anchor buffer against its plain version
+    and against a circular Conv3d of one-hot weights (`rolls_kernel_phase`)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import rolls
+
+    S, C = bufT.shape[:2]
+    shape = tuple(bufT.shape[2:])
+    ncells = int(np.prod(shape))
     plain = rolls.distribute_rolls_reference(bufT, offsets)
     kern = rolls.distribute_rolls(bufT, offsets)
     err = check_close("rolls_deposit", "out", kern, plain)
 
     r = int(np.abs(offsets).max())
     conv = torch.nn.Conv3d(S * C, C, 2 * r + 1, padding=r, padding_mode="circular",
-                           bias=False, device=device)
+                           bias=False, device=bufT.device)
     with torch.no_grad():
         conv.weight.zero_()
         for o, (dx, dy, dz) in enumerate(offsets):
@@ -429,7 +450,7 @@ def rolls_kernel_phase(device, offsets, C):
     ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20)
     dev_ms = cuda_ms(lambda: rolls.distribute_rolls(bufT, offsets), 20, device_only=True)
     plain_ms = cuda_ms(lambda: rolls.distribute_rolls_reference(bufT, offsets), 5)
-    print(f"kernel rolls_deposit (S={S}, C={C}, {NX}^3): max_abs_err {err:.3e}; kernel "
+    print(f"kernel rolls_deposit (S={S}, C={C}, {shape}): max_abs_err {err:.3e}; kernel "
           f"{ms:.3f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.3f} ms, Conv3d "
           f"{library_ms:.3f} ms (its max abs difference {lib_err:.3e})", flush=True)
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
@@ -442,9 +463,7 @@ def laplacian_kernel_phase(device):
     coefficients. No single PyTorch call computes it (library_ms null)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
-    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
     from yade_openfoam_coupling_tpu_torch.ops.grid import Grid, pad_scalar
-    from yade_openfoam_coupling_tpu_torch.ops.stencil import laplacian_facegamma_padded
 
     grid = Grid.cube(NX, 1e-3 * NX)
     gen = torch.Generator(device=device).manual_seed(4)
@@ -453,17 +472,26 @@ def laplacian_kernel_phase(device):
     n = NX
     gamma_f = tuple(0.5 + torch.rand(s, generator=gen, device=device)
                     for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+    return laplacian_entry(gamma_f, pp, grid, "laplacian")
+
+
+def laplacian_entry(gamma_f, pp, grid, label):
+    """B2 on one padded field against its plain version: its kernels-line
+    entry. No single PyTorch call computes it (library_ms null)."""
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
+    from yade_openfoam_coupling_tpu_torch.ops.stencil import laplacian_facegamma_padded
+
     plain = laplacian_facegamma_padded(gamma_f, pp, grid)
     kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
-    err = check_close("laplacian", "out", kern[None], plain[None])
+    err = check_close(label, "out", kern[None], plain[None])
     ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50)
     dev_ms = cuda_ms(lambda: fs.laplacian_facegamma_fused(gamma_f, pp, grid), 50,
                      device_only=True)
     plain_ms = cuda_ms(lambda: laplacian_facegamma_padded(gamma_f, pp, grid), 20)
-    print(f"kernel laplacian ({NX}^3): max_abs_err {err:.3e}; kernel {ms:.4f} ms "
-          f"({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
+    print(f"kernel {label} (padded {tuple(pp.shape)}): max_abs_err {err:.3e}; kernel "
+          f"{ms:.4f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            **bound(nbytes(pp, *gamma_f, kern), 25 * n ** 3), "library_ms": None}
+            **bound(nbytes(pp, *gamma_f, kern), 25 * kern.numel()), "library_ms": None}
 
 
 def laplacian_bf16_kernel_phase(device, card):
@@ -1212,6 +1240,465 @@ def spring_report(state, d):
             f"{int((ps.shear_wall.abs().sum(-1) > 0).sum())}")
 
 
+
+# ---------------------------------------------------------------------------
+# The slab-sharded path (parallel/): 1 rank on NCCL, 2 ranks on gloo
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 2 * STEPS_PER_RUN   # two chunks of the bench's 10-step rebuild
+# tests/test_sharding.py's chunked 1-vs-N tolerances, (rtol, atol)
+BY_PID_TOL = {"pos": (1e-4, 1e-8), "vel": (5e-3, 5e-5)}
+FIELD_TOL = {"alpha": (1e-4, 1e-6), "u": (1e-2, 1e-5)}
+
+
+def sharded_config(cfg, **coupling_kw):
+    """`scripts/bench_sharded1.py`'s configuration (:42-85) from the bench's
+    cfg: no carried contact force (the sharded path refuses it: it
+    migrates slots between steps), PIMPLE 1 x 1, the column staging
+    layout; the coupling changed by coupling_kw. (Its state stays the
+    bench's lattice: bench_sharded1's uniform cloud overlaps ~10^4 pairs
+    and overflows the DEM list, which bench.py's checks refuse.)"""
+    cfg = dataclasses.replace(
+        cfg, dem=dataclasses.replace(cfg.dem, carry_contact=False),
+        pimple=dataclasses.replace(cfg.pimple, n_correctors=1),
+        coupling=dataclasses.replace(cfg.coupling, packed_bin="col"))
+    if coupling_kw:
+        cfg = dataclasses.replace(cfg, coupling=dataclasses.replace(cfg.coupling,
+                                                                    **coupling_kw))
+    return cfg
+
+
+def host_view(state, diags=None):
+    """A run's result as host numpy: the particles by pid, alpha and u, and
+    the diagnostics stacked over the steps."""
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+    out = {"particles": sh.particles_by_pid(state.particles),
+           "alpha": state.fluid.alpha.detach().cpu().numpy(),
+           "u": state.fluid.u.detach().cpu().numpy()}
+    if diags is not None:
+        out["diags"] = {k: v.detach().cpu().numpy() for k, v in diags._asdict().items()}
+    return out
+
+
+def compare_runs(label, ref, got):
+    """The sharded run against the single-device one from the same state:
+    the same pids, pos and vel by pid, alpha and u, each at BY_PID_TOL and
+    FIELD_TOL. -> the largest difference over each field's scale."""
+    pr, pg = ref["particles"], got["particles"]
+    if not np.array_equal(pr["pid"], pg["pid"]):
+        raise AssertionError(f"{label}: the sharded run holds other particles "
+                             f"({len(pg['pid'])} vs {len(pr['pid'])})")
+    worst = 0.0
+    pairs = [(k, pr[k], pg[k], BY_PID_TOL[k]) for k in BY_PID_TOL]
+    pairs += [(k, ref[k], got[k], FIELD_TOL[k]) for k in FIELD_TOL]
+    for name, a, b, (rtol, atol) in pairs:
+        bad = np.abs(b - a) > atol + rtol * np.abs(a)
+        if bad.any():
+            raise AssertionError(f"{label}: {name} differs from the single-device run at "
+                                 f"{int(bad.sum())} entries (rtol {rtol:g}, atol {atol:g}; "
+                                 f"max abs {float(np.abs(b - a).max()):.3e})")
+        worst = max(worst, float(np.abs(b - a).max() / max(np.abs(a).max(), 1e-30)))
+    return worst
+
+
+def got_iters(view):
+    """The pressure CG's iterations per step of a run's view, as min-max."""
+    it = view["diags"]["p_iters"]
+    return f"{it.min()}-{it.max()}"
+
+
+def bench_checks(label, d, n_steps):
+    """bench.py's three checks on per-step diagnostics (numpy): the
+    pressure residual, continuity and zero overflows, the sharded path's
+    migration and ghost overflows included."""
+    p_final = float(d["p_final_residual"].max())
+    p_init = float(d["p_initial_residual"].max())
+    cont = float(np.abs(d["cont_err_local"]).max())
+    n_over = int(d["n_contact_overflow"].max() + d["n_coupling_overflow"].max()
+                 + d["n_shard_overflow"].max())
+    if not p_final <= max(1e-5 * max(p_init, 1e-30), 5e-6):
+        raise AssertionError(f"{label}: pressure solve not converged: final {p_final:g} vs "
+                             f"initial {p_init:g}")
+    if not cont < 1e-5:
+        raise AssertionError(f"{label}: continuity error {cont:g}")
+    if n_over != 0:
+        raise AssertionError(f"{label}: overflows {n_over}")
+    if len(d["n_found"]) != n_steps:
+        raise AssertionError(f"{label}: {len(d['n_found'])} diagnostics for {n_steps} steps")
+    return p_final, cont
+
+
+def require_launches(label, launches, per_step, n_steps):
+    """Each kernel of `per_step` launched at least that often per step."""
+    for name, k in per_step.items():
+        if launches[name] < k * n_steps:
+            raise AssertionError(f"{label}: kernel {name} launched {launches[name]} times in "
+                                 f"{n_steps} steps (at least {k} per step)")
+
+
+@contextlib.contextmanager
+def capture_first(module, name):
+    """While active, `module.name` keeps its first call's arguments in the
+    yielded list. Its launch counter (incremented by the wrapped function
+    through the module's name) carries over both ways."""
+    orig = getattr(module, name)
+    seen = []
+
+    def wrapper(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return orig(*a, **kw)
+    wrapper.launches = orig.launches
+    setattr(module, name, wrapper)
+    try:
+        yield seen
+    finally:
+        orig.launches = wrapper.launches
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def one_rank_mesh(backend, device):
+    """A one-rank process group (file rendezvous, 300 s timeout) and its
+    mesh on `device`, for the duration of the block."""
+    import datetime
+    import torch.distributed as dist
+    from yade_openfoam_coupling_tpu_torch.parallel import make_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rdzv_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        yield make_mesh(device=device)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def slab_kernel_entries(cfg, mesh, state):
+    """Each kernel of cfg's sharded exchange on this rank's slab, at the
+    shapes one sharded step hands it (the inputs of its first call in one
+    exchange), against its plain version: the entries of the kernels line."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+    from yade_openfoam_coupling_tpu_torch.ops import rolls
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+
+    ccfg = cfg.coupling
+    if ccfg.exchange == "sparse":
+        spots = [(rolls, "distribute_rolls")]
+    elif ccfg.exchange == "window":
+        spots = [(cw, "window_exchange_padded")]
+    elif ccfg.fused_planes:
+        spots = [(cpp, "fused_exchange_padded")]
+    else:
+        spots = [(cpp, "interp_planes_padded"), (cpp, "deposit_stacks")]
+    s = sh.to_sharded_state(state, cfg, mesh)
+    n_loc, ctx, _ = sh._setup(cfg, mesh)
+    chunked = ccfg.exchange != "sparse"
+    ex = sh.make_sharded_exchange(cfg, ctx, n_loc, ext_slab=chunked)
+    fs = s.fluid._replace(phi=sh.lo_to_faces_local(s.fluid.phi, cfg.bcs.u, ctx))
+    with contextlib.ExitStack() as stack:
+        seen = [stack.enter_context(capture_first(m, n)) for m, n in spots]
+        ex(fs, s.particles, s.dt)
+    torch.cuda.synchronize()
+    out = {}
+    for (mod, name), [(a, kw)] in zip(spots, seen):
+        if name == "distribute_rolls":
+            out["rolls_deposit_sharded"] = rolls_entry(*a)
+            continue
+        plain_fn = getattr(mod, name + "_reference")
+        kern_fn = getattr(mod, name)
+        pkw = {k: v for k, v in kw.items() if k != "max_occupied"}
+        plain, kern = plain_fn(*a, **pkw), kern_fn(*a, **kw)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        kern = kern if isinstance(kern, tuple) else (kern,)
+        err = max(check_close(name, str(i), k, p) for i, (k, p) in enumerate(zip(kern, plain))
+                  if isinstance(k, torch.Tensor))
+        ms, dev_ms = kernel_times(lambda: kern_fn(*a, **kw))
+        plain_ms = cuda_ms(lambda: plain_fn(*a, **pkw), 5)
+        outs = [t for t in kern if isinstance(t, torch.Tensor)]
+        if name == "window_exchange_padded":
+            Fp, dat_win = a[0], a[1]
+            counts = kw["counts"]
+            live = int(counts.clamp(max=dat_win.shape[-1]).sum())
+            n_bytes = (nbytes(Fp, counts, *outs)
+                       + live * dat_win.shape[1] * dat_win.element_size())
+            flops = exchange_flops(live, 19, Fp.shape[0])
+            key = "window_exchange_sharded"
+        elif name == "deposit_stacks":
+            V, D = a[0], a[1]
+            d_bytes, n_occ = slot_table_bytes(D)
+            n_bytes = nbytes(*outs, D[6]) + V.shape[0] * n_occ * V.element_size() + 12 * n_occ
+            flops = exchange_flops(n_occ, 19, 10)
+            key = "planes_deposit_sharded"
+        else:
+            Fp, D = a[0], a[1]
+            d_bytes, n_occ = slot_table_bytes(D)
+            n_bytes = nbytes(Fp, *outs) + d_bytes
+            flops = exchange_flops(n_occ, 19, Fp.shape[0])
+            key = ("planes_fused_sharded" if name == "fused_exchange_padded"
+                   else "planes_interp_sharded")
+        print(f"kernel {key} (first input {tuple(a[0].shape)}, x_off {a[6 if key == 'planes_deposit_sharded' else 5]}): "
+              f"max_abs_err {err:.3e}; kernel {ms:.4f} ms ({dev_ms:.4f} ms device only), "
+              f"plain {plain_ms:.3f} ms", flush=True)
+        out[key] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    **bound(n_bytes, flops), "library_ms": None}
+    return out
+
+
+def sharded_timed_split(cfg, mesh, state, card, label):
+    """One STEPS_PER_RUN-step sharded chunk under a `PhaseTimer` (each phase
+    synchronised at its end): ms/step in halo pads, migration and the DEM
+    plan, ghost refreshes, the exchange, the DEM, and the rest (the fluid:
+    turbulence, PIMPLE, diagnostics)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+    from yade_openfoam_coupling_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    s = sh.to_sharded_state(state, cfg, mesh)
+    run = sh.make_sharded_scan(cfg, mesh, STEPS_PER_RUN, timer=timer)
+    torch.cuda.synchronize()
+    with timer.phase("all", block_on=state.fluid.p):
+        run(s)
+    per = {k: 1e3 * v / STEPS_PER_RUN for k, v in timer.totals.items()}
+    plan = per.get("migration", 0.0) + per.get("DEM plan (ghost set, Verlet list)", 0.0)
+    fluid = per["all"] - per.get("exchange", 0.0) - per.get("DEM", 0.0) - plan
+    print(f"{label} split (ms/step, synchronised; halo pads and ghosts lie inside the other "
+          f"phases) [{card}]: all {per['all']:.2f}, halo pads {per.get('halo pads', 0.0):.2f}, "
+          f"migration + DEM plan {plan:.2f}, ghosts {per.get('ghosts', 0.0):.2f}, exchange "
+          f"{per.get('exchange', 0.0):.2f}, DEM {per.get('DEM', 0.0):.2f}, fluid and the rest "
+          f"{fluid:.2f}", flush=True)
+    print(timer.report(), flush=True)
+
+
+def sharded_phase(cfg, device, card, backend="nccl"):
+    """Phase 1 of the sharded path: the bench's configuration (window
+    exchange, cell list rebuilt every 10 steps, kEqn, fftpcg) at full size
+    on a one-rank mesh, SHARDED_STEPS steps of the chunked
+    `make_sharded_scan` (every collective a local copy) against the
+    single-device `make_scan_fn` from the same state, by pid; bench.py's
+    checks on the sharded run; B1 at least once a step. The two runs are
+    timed in turns (single, sharded, sharded, single), each window holding
+    its scan alone; the references are taken in untimed runs. -> (kernel
+    entries, launches, the single-device run's view after STEPS_PER_RUN
+    steps)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+
+    scfg = sharded_config(cfg)
+    n = N_PARTICLES
+    state0 = initial_state(scfg, n, device)
+    run = cd.make_scan_fn(scfg, STEPS_PER_RUN)
+    s, d1 = run(state0)                             # warm-up, and the references
+    ref10 = host_view(s)
+    s, d2 = run(s)
+    ref20 = host_view(s)
+    iters = torch.cat([d1.p_iters, d2.p_iters]).cpu().numpy()
+    del s
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0) / SHARDED_STEPS
+
+    with one_rank_mesh(backend, device) as mesh:
+        scan = sh.make_sharded_scan(scfg, mesh, SHARDED_STEPS)
+        sh.make_sharded_scan(scfg, mesh, STEPS_PER_RUN)(sh.to_sharded_state(state0, scfg,
+                                                                            mesh))  # warm-up
+        single_ms, sharded_ms = [], []
+        for turn in ("single", "sharded", "sharded", "single"):
+            if turn == "single":
+                _, ms = timed(lambda: run(run(state0)[0]))
+                single_ms.append(ms)
+                continue
+            s = sh.to_sharded_state(state0, scfg, mesh)
+            if not sharded_ms:
+                reset_launches()
+                (out, d), ms = timed(lambda: scan(s))
+                launches = read_launches()
+            else:
+                _, ms = timed(lambda: scan(s))
+            sharded_ms.append(ms)
+        label = f"sharded window slice, 1 rank ({backend})"
+        require_launches(label, launches, {"window_exchange": 1}, SHARDED_STEPS)
+        got = host_view(sh.gather_state(out, scfg, mesh), d)
+        p_final, cont = bench_checks(label, got["diags"], SHARDED_STEPS)
+        worst = compare_runs(label, ref20, got)
+        print(f"{label} {n} particles {NX}^3, {SHARDED_STEPS} steps, timed in turns "
+              f"(single, sharded, sharded, single): sharded-program step "
+              f"{sharded_ms[0]:.2f}, {sharded_ms[1]:.2f} ms on a 1-shard mesh, single-device "
+              f"make_scan_fn {single_ms[0]:.2f}, {single_ms[1]:.2f} ms [{card}]; p residual "
+              f"{p_final:.3e}, continuity {cont:.3e}, overflows 0, B1 launches "
+              f"{launches['window_exchange']}; p_iters per step: sharded {got_iters(got)}, "
+              f"single-device {iters.min()}-{iters.max()}; by pid against the single-device "
+              f"run: worst difference {worst:.3e} of scale", flush=True)
+        del out
+        sharded_timed_split(scfg, mesh, state0, card, label)
+        entries = slab_kernel_entries(scfg, mesh, state0)
+    return entries, {"window_exchange_sharded": launches["window_exchange"]}, ref10
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def two_rank_run(mesh, cfg, n, n_steps):
+    """One rank of phase 2: the bench state built on this rank's device,
+    n_steps of the chunked sharded scan, gathered to rank 0. -> (rank,
+    x_off of every B1 launch, B1 launches, ms/step, rank 0's view)."""
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+
+    state0 = initial_state(cfg, n, mesh.device)
+    s = sh.to_sharded_state(state0, cfg, mesh)
+    scan = sh.make_sharded_scan(cfg, mesh, n_steps)
+    offs = []
+    orig = cw.window_exchange_padded
+
+    def record(*a, **kw):
+        offs.append(int(a[5]))
+        return orig(*a, **kw)
+    record.launches = 0
+    cw.window_exchange_padded = record
+    try:
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        out, d = scan(s)
+        _sync(mesh.device)
+        ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    finally:
+        cw.window_exchange_padded = orig
+    g = sh.gather_state(out, cfg, mesh)
+    view = host_view(g, d) if g is not None else None
+    return mesh.rank, sorted(set(offs)), record.launches, ms, view
+
+
+def two_rank_phase(cfg, card, ref10, device="cuda:0"):
+    """Phase 2: two ranks sharing the card on a gloo group (their halos and
+    reductions staged through host memory), STEPS_PER_RUN steps of the
+    same configuration: the gathered state agrees with the single-device
+    run by pid, no overflow, and B1 launched on each rank at its slab's
+    x_off (rank * n_loc - 1, the extended window)."""
+    from yade_openfoam_coupling_tpu_torch.parallel import launch
+
+    scfg = sharded_config(cfg)
+    res = launch(two_rank_run, 2, "gloo", device, (scfg, N_PARTICLES, STEPS_PER_RUN),
+                 timeout=300, deadline=600)
+    label = "sharded window slice, 2 ranks sharing the card (gloo)"
+    n_loc = NX // 2
+    for rank, offs, n_b1, ms, _ in res:
+        if offs != [rank * n_loc - 1]:
+            raise AssertionError(f"{label}: rank {rank} ran B1 at x_off {offs}, not at "
+                                 f"{rank * n_loc - 1}")
+        require_launches(f"{label}, rank {rank}", {"window_exchange": n_b1},
+                         {"window_exchange": 1}, STEPS_PER_RUN)
+    got = res[0][4]
+    p_final, cont = bench_checks(label, got["diags"], STEPS_PER_RUN)
+    worst = compare_runs(label, ref10, got)
+    print(f"{label} {N_PARTICLES} particles {NX}^3, {STEPS_PER_RUN} steps: "
+          + ", ".join(f"rank {r} {ms:.2f} ms/step, B1 {n} launches at x_off {o[0]}"
+                      for r, o, n, ms, _ in res)
+          + f" [{card}]; p residual {p_final:.3e}, continuity {cont:.3e}, overflows 0; by "
+          f"pid against the single-device run: worst difference {worst:.3e} of scale",
+          flush=True)
+
+
+def slab_laplacian_entry(cfg, mesh, state):
+    """B2 at the sharded pressure solve's shapes: one sharded step from
+    `state` (a sharded state whose p is nonzero), keeping the first B2
+    call on a nonzero slab-sized padded p. With p0 = state's p that is the
+    CG's first residual, A(p0), whose x ghosts come from the ring (the
+    call before it is the zero field of the ghost constant). -> its
+    kernels-line entry."""
+    from yade_openfoam_coupling_tpu_torch.ops import pressure
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+
+    want = tuple(s + 2 for s in state.fluid.p.shape)
+    seen = []
+    orig = pressure.laplacian_facegamma_fused
+
+    def keep(gamma_f, pp, grid):
+        if not seen and tuple(pp.shape) == want and bool(pp.abs().max() > 0):
+            seen.append((tuple(g.clone() for g in gamma_f), pp.clone(), grid))
+        return orig(gamma_f, pp, grid)
+    pressure.laplacian_facegamma_fused = keep
+    try:
+        sh.make_sharded_step(cfg, mesh)(state)
+    finally:
+        pressure.laplacian_facegamma_fused = orig
+    if not seen:
+        raise AssertionError(f"sharded step: no B2 call on a nonzero {want} padded field")
+    return laplacian_entry(*seen[0], "laplacian_sharded")
+
+
+def mgpcg_config(cfg):
+    """cfg with the V-cycle-preconditioned CG and B2 in every matvec."""
+    pim = cfg.pimple
+    cfg = dataclasses.replace(cfg, pimple=dataclasses.replace(
+        pim, pressure=dataclasses.replace(pim.pressure, solver="mgpcg")))
+    return with_use_pallas(cfg)
+
+
+def sharded_chunks_phase(cfg, device, card, backend="nccl"):
+    """Phase 3: one STEPS_PER_RUN-step run each of the sharded sparse
+    exchange (B3 through the slab deposit), the sharded planes exchange
+    (B4) and its two-kernel path (B5 + B6), and the window slice with the
+    mgpcg solver under `use_pallas` (B2 on the ring-padded slab), on a
+    one-rank mesh, each against the single-device run from the same
+    state. -> (kernel entries, launches)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+    from yade_openfoam_coupling_tpu_torch.parallel import sharded as sh
+
+    runs = [("sparse", sharded_config(cfg, exchange="sparse"), {"rolls_deposit": 1},
+             {"rolls_deposit": "rolls_deposit_sharded"}),
+            ("planes", sharded_config(planes_config(cfg)), {"planes_fused": 1},
+             {"planes_fused": "planes_fused_sharded"}),
+            ("two-kernel planes", sharded_config(planes_config(cfg, fused_planes=False)),
+             {"planes_interp": 1, "planes_deposit": 1},
+             {"planes_interp": "planes_interp_sharded",
+              "planes_deposit": "planes_deposit_sharded"}),
+            ("mgpcg use_pallas", mgpcg_config(sharded_config(cfg)),
+             {"window_exchange": 1, "laplacian": 1}, {"laplacian": "laplacian_sharded"})]
+    entries, launched = {}, {}
+    with one_rank_mesh(backend, device) as mesh:
+        for name, scfg, per_step, keys in runs:
+            state0 = initial_state(scfg, N_PARTICLES, device)
+            s, d = cd.make_scan_fn(scfg, STEPS_PER_RUN)(state0)
+            ref = host_view(s, d)
+            del s
+            reset_launches()
+            out, d = sh.make_sharded_scan(scfg, mesh, STEPS_PER_RUN)(
+                sh.to_sharded_state(state0, scfg, mesh))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            label = f"sharded {name} chunk, 1 rank ({backend})"
+            require_launches(label, launches, per_step, STEPS_PER_RUN)
+            got = host_view(sh.gather_state(out, scfg, mesh), d)
+            if "laplacian" in per_step:
+                entries["laplacian_sharded"] = slab_laplacian_entry(scfg, mesh, out)
+            del out
+            p_final, cont = bench_checks(label, got["diags"], STEPS_PER_RUN)
+            worst = compare_runs(label, ref, got)
+            print(f"{label} {N_PARTICLES} particles {NX}^3, {STEPS_PER_RUN} steps: p residual "
+                  f"{p_final:.3e}, continuity {cont:.3e}, overflows 0, launches "
+                  f"{ {k: launches[k] for k in per_step} }; p_iters per step: sharded "
+                  f"{got_iters(got)}, single-device {got_iters(ref)}; by pid against the "
+                  f"single-device run: worst difference {worst:.3e} of scale [{card}]",
+                  flush=True)
+            launched.update({keys[k]: launches[k] for k in keys})
+            if "laplacian" not in per_step:
+                entries.update(slab_kernel_entries(scfg, mesh, state0))
+    return entries, launched
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -1374,6 +1861,16 @@ def main() -> int:
     settling_phase(device, smi)
     launches["dynwin_staging"] = dynwin_script_phase(smi)
 
+    # the slab-sharded path: 1 rank on NCCL, 2 ranks sharing the card on
+    # gloo, and the sparse and planes exchanges' chunks on 1 rank
+    entries, launched, ref10 = sharded_phase(cfg, device, smi)
+    two_rank_phase(cfg, smi, ref10)
+    kern.update(entries)
+    launches.update(launched)
+    entries, launched = sharded_chunks_phase(cfg, device, smi)
+    kern.update(entries)
+    launches.update(launched)
+
     chunked_phase(pcfg, device)
     grid16 = bench_config(16).grid
     small_check(device, bench_config(16), "window")
@@ -1404,7 +1901,16 @@ def main() -> int:
                "laplacian_bf16": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
                "rolls_deposit_125": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
                "rolls_deposit_slots": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
-               "dynwin_staging": ("dynwin_staging.cu", "scripts/proto_dynwin.py:34")}
+               "dynwin_staging": ("dynwin_staging.cu", "scripts/proto_dynwin.py:34"),
+               "window_exchange_sharded": ("window_exchange.cu",
+                                           JAX_OPS + "coupling_window.py:162"),
+               "rolls_deposit_sharded": ("rolls_deposit.cu", JAX_OPS + "pallas_rolls.py:39"),
+               "planes_fused_sharded": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
+               "planes_interp_sharded": ("planes_exchange.cu",
+                                         JAX_OPS + "coupling_planes.py:278"),
+               "planes_deposit_sharded": ("planes_exchange.cu",
+                                          JAX_OPS + "coupling_planes.py:404"),
+               "laplacian_sharded": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37")}
     entries = []
     for name, e in kern.items():
         src, replaces = sources[name]

@@ -886,3 +886,50 @@ def test_pcg_fixed_iters_reads_nothing_on_the_host(cuda, solver):
     assert fs.laplacian_facegamma_fused.launches > launches + n
     assert int(out.iters) == n > 2
     assert float((out.x - ref.x).abs().max()) <= 1e-6 * float(ref.x.abs().max())
+
+
+@pytest.mark.cuda
+def test_ring_exchange_at_one_nccl_rank_is_a_local_copy(cuda, tmp_path):
+    """A one-rank NCCL group: the ring permute hands back copies of what
+    each direction sent (torch refuses a send to self; JAX's one-shard
+    ppermute is a self-permute), and a reduction is the value itself."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from yade_openfoam_coupling_tpu_torch.parallel import ctx as pctx
+    from yade_openfoam_coupling_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(device=cuda)
+        assert mesh.backend == "nccl" and mesh.size == 1 and mesh.device.type == "cuda"
+        a = torch.arange(6.0, device=mesh.device).reshape(2, 3)
+        b = -torch.arange(4.0, device=mesh.device)
+        from_left, from_right = pctx.ring_exchange(mesh, [a], [b])
+        assert torch.equal(from_left[0], a) and torch.equal(from_right[0], b)
+        assert from_left[0].data_ptr() != a.data_ptr()
+        assert torch.equal(pctx.all_reduce(mesh, a, "sum"), a)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_start,wrap", [(0, False), (4, False), (6, False), (0, True),
+                                          (4, True), (6, True), (-1, True)])
+def test_window_bins_slab_mode_matches_cpu(cuda, x_start, wrap):
+    """`window_bins` on an x-window of n_loc planes (x_off 0, 4 and
+    nx - n_loc = 6, wrapped modulo nx or not) gives on the card what it
+    gives on the CPU, bit for bit: the sort, the ranks, the counts and the
+    staged window."""
+    n_loc = 6
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        pf = _particle_fields(GRID, 400, dev, seed=11)
+        out[dev.type] = cw.window_bins(pf, GRID, 4, 512, with_angvel=True, x_start=x_start,
+                                       n_loc=n_loc, wrap_x=wrap)
+    for name in ("dat_win", "order", "inv_order", "cell_sorted", "rank", "keep", "counts",
+                 "n_overflow"):
+        assert torch.equal(getattr(out["cuda"], name).cpu(), getattr(out["cpu"], name)), name
+    assert int(out["cpu"].counts.sum()) > 0

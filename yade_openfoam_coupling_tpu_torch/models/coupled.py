@@ -103,15 +103,28 @@ class CaseConfig:
             built[key] = (self.solid, ob.build_masks(self.solid, self.bcs.periodic_axes(), device))
         return built[key][1]
 
-    def wall_layers(self, device):
+    def wall_layers(self, device, slab=None):
         """The kEpsilon wall functions' (mask, y) of `grid` and `bcs` on
         ``device`` (`turbulence.wall_layers`), built once per device and
-        kept beside the fields, as `obstacle_masks` are."""
+        kept beside the fields, as `obstacle_masks` are. ``slab`` = (x
+        start, planes) cuts them to one rank's x-slab; the entry is keyed
+        by the slab too, so ranks that share a card never share it."""
         built = self.__dict__.setdefault("_wall_layers", {})
-        key = str(torch.device(device))
+        key = (str(torch.device(device)), slab)
         if key not in built:
-            built[key] = turb_mod.wall_layers(self.grid, self.bcs, device)
+            mask, y = turb_mod.wall_layers(self.grid, self.bcs, device)
+            if slab is not None:
+                mask, y = mask[slab[0]:slab[0] + slab[1]], y[slab[0]:slab[0] + slab[1]]
+            built[key] = (mask, y)
         return built[key]
+
+
+def _slab_of(ctx, field: torch.Tensor):
+    """(x start, planes) of this rank's slab under a sharded ctx, else None."""
+    if ctx is None or ctx.mesh_axes[0] is None:
+        return None
+    n_loc = field.shape[0]
+    return (ctx.shard_index(0) * n_loc, n_loc)
 
 
 def _check_supported(cfg: CaseConfig) -> None:
@@ -232,10 +245,17 @@ def initialize_state(fluid: FluidState, particles: ParticleState,
     )
 
 
-def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
-                 frozen_list: bool = False,
+def coupled_step(state: SimState, cfg: CaseConfig, ctx=None, exchange_fn=None,
+                 dem_fn=None, fluid_fn=None, frozen_list: bool = False,
                  lite_diag: bool = False) -> Tuple[SimState, StepDiagnostics]:
     """Advance the coupled system one fluid time step.
+
+    ``ctx`` selects single-device or per-rank execution; ``exchange_fn(fs,
+    ps, dt)`` replaces the coupling exchange, ``dem_fn(ps, hydro, dt_dem[,
+    dt_seq])`` the DEM substeps (the slab-sharded path's owner-rank
+    exchange and ghost-refreshing DEM, `parallel/sharded.py`) and
+    ``fluid_fn(fs, dt)`` the fluid step. Under particle sharding the
+    particle arrays hold only this rank's slab population.
 
     With a persistent Verlet list (``list_reuse``) and ``frozen_list``
     (`make_scan_fn` rebuilds it per chunk) the list is used as it is and
@@ -276,7 +296,10 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
         dt = state.dt
 
     # 2-3. coupling exchange
-    cres = exchange(fs, ps, grid, bcs, tp, cfg.coupling, dt, ctx)
+    if exchange_fn is None:
+        cres = exchange(fs, ps, grid, bcs, tp, cfg.coupling, dt, ctx)
+    else:
+        cres = exchange_fn(fs, ps, dt)
     fs = fs._replace(alpha=cres.alpha, alpha_old=fs.alpha, u_source=cres.u_source,
                      u_source_drag=cres.u_source_drag, u_particle=cres.u_particle)
 
@@ -296,7 +319,7 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
     hydro = demod.DEMForces(cres.force, cres.torque)
     nbr = None
     n_list_overflow = izero
-    if cfg.dem.list_reuse:
+    if dem_fn is None and cfg.dem.list_reuse:
         if cfg.dem.neighbor != "cells":
             raise ValueError("list_reuse requires neighbor='cells'")
         if ps.nbr is None:
@@ -314,7 +337,15 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
                 ps.pos, ps.nbr_ref_pos, ps.active, grid, cfg.dem.periodic)) >= margin):
             ps, n_list_overflow = _rebuild(ps, cfg, return_overflow=True)
         nbr = ps.nbr
-    if cfg.dem.shear_history:
+    if dem_fn is not None:
+        # dt_seq only when dynamic: custom closures keep the 3-argument form
+        extra = () if dt_seq is None else (dt_seq,)
+        if cfg.dem.shear_history:
+            pos, vel, angvel, n_overflow, sh = dem_fn(ps, hydro, dt_dem, *extra)
+            ps = ps._replace(shear_xi=sh.xi, shear_ids=sh.ids, shear_wall=sh.xi_wall)
+        else:
+            pos, vel, angvel, n_overflow = dem_fn(ps, hydro, dt_dem, *extra)
+    elif cfg.dem.shear_history:
         pos, vel, angvel, n_overflow, sh = demod.dem_substeps(
             ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
             cfg.dem, dt_dem, n_sub, cfg.r_max,
@@ -337,13 +368,16 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None,
     # 5. fluid step
     u_prev = fs.u
     masks = cfg.obstacle_masks(dev)
-    if cfg.solver == "piso":
+    if fluid_fn is not None:
+        fs2, info = fluid_fn(fs, dt)
+        tb2 = tb
+    elif cfg.solver == "piso":
         fs2, info = piso_step(fs, grid, bcs, tp.nu, dt, cfg.piso, ctx=ctx, masks=masks)
         tb2 = tb
     else:
         tc = cfg.turbulence
-        walls = (cfg.wall_layers(dev) if tc.model == "kEpsilon" and tc.wall_functions
-                 else None)
+        walls = (cfg.wall_layers(dev, _slab_of(ctx, fs.p)) if tc.model == "kEpsilon"
+                 and tc.wall_functions else None)
         tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, tc, ctx=ctx, walls=walls)
         g = torch.tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
         fs2, info = pimple_step(fs, grid, bcs, tp.nu, tb2.nut, g, dt, cfg.pimple, ctx=ctx,

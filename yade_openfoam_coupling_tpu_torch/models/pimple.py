@@ -66,7 +66,8 @@ def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
                          "the solid rows; use explicit diffusion")
     if masks is not None and not isinstance(ctx, LocalCtx):
         raise NotImplementedError(
-            "masked-cell obstacles on a sharded ctx: not ported yet (ROADMAP A15)")
+            "masked-cell obstacles on a sharded ctx: the masks are not sliced per slab "
+            "(the JAX package asserts one device too, pimple.py:127-133)")
     alpha = fs.alpha
     alpha_old = fs.alpha_old
     alpha_f = st.face_interp_all_padded(ctx.pad_s(alpha, _NEU))   # alphacf

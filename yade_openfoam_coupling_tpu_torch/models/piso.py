@@ -6,7 +6,7 @@ Momentum is implicit Euler with the coupling drag in the diagonal and
 convection and diffusion explicit, so A = 1/dt - uSourceDrag and
 H = U_n/dt - div(phi,U) + nu lap(U) + uSource; each corrector recomputes H
 from the latest U (Picard) and solves div(rAU_f grad p) = div(phiHbyA)
-matrix-free. Single-device: a sharded ctx raises (ROADMAP A15).
+matrix-free. On a sharded ctx the halos and reductions go through the ring.
 """
 
 from __future__ import annotations
@@ -104,8 +104,13 @@ def piso_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu, dt,
     `solve_pressure(solid=...)`."""
     from ..parallel.ctx import LOCAL, LocalCtx
     ctx = ctx if ctx is not None else LOCAL
-    if not isinstance(ctx, LocalCtx):
-        raise NotImplementedError("piso_step on a sharded ctx: not ported yet (ROADMAP A15)")
+    if masks is not None and not isinstance(ctx, LocalCtx):
+        # the JAX package asserts one device here too (piso.py:161-164)
+        raise NotImplementedError(
+            "masked-cell obstacles on a sharded ctx: the masks are not sliced per slab")
+    # block-local (additive-Schwarz) preconditioning under sharding:
+    # homogeneous BCs with Dirichlet-0 on the sharded axis' faces
+    precond_bc = None if isinstance(ctx, LocalCtx) else _precond_bc_for(bcs.p, ctx)
     A, H = momentum_AH(fs, grid, bcs, nu, dt, cfg, ctx=ctx)
     rAU = 1.0 / A
     HbyA = rAU[None] * H
@@ -142,7 +147,7 @@ def piso_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu, dt,
             gamma_f = ob.mask_flux(gamma_f, masks)
         res = pr.solve_pressure(gamma_f, st.div_flux(phiHbyA, grid), p, grid, bcs.p,
                                 cfg.pressure, pad=lambda f: ctx.pad_s(f, bcs.p),
-                                reduce_sum=ctx.sum, solid=masks)
+                                reduce_sum=ctx.sum, precond_bc=precond_bc, solid=masks)
         p = res.x
         # step-level info: first solve's initial residual, last solve's
         # final residual, total iterations
@@ -170,8 +175,10 @@ def _needs_adjust_phi(bcs: FluidBCs) -> bool:
 
 
 def _precond_bc_for(p_bc: FieldBC, ctx) -> FieldBC:
-    """Homogenized pressure BC for block-local preconditioning: sharded-axis
-    faces become Dirichlet-0."""
+    """Homogenized pressure BC for block-local preconditioning under
+    sharding: sharded-axis faces become Dirichlet-0 (shard-internal edges),
+    which keeps each local block non-singular (additive Schwarz). A
+    one-rank mesh follows the same rule, as in the JAX package."""
     faces = []
     h = p_bc.homogeneous()
     for a in range(3):

@@ -198,21 +198,35 @@ class WindowBins(NamedTuple):
 
 
 def window_bins(pf: cp.ParticleFields, grid: Grid, cap: int, W: int,
-                with_angvel: bool = False) -> WindowBins:
-    """Build the per-plane window staging tensor on the full grid. Each row
-    carries the hi/lo split of the anchor-relative position, the velocity
-    and radius [and angular velocity], then y, z and rank; rows past a
-    plane's population or not kept carry y = -1."""
+                with_angvel: bool = False, x_start=None, n_loc: Optional[int] = None,
+                wrap_x: bool = False) -> WindowBins:
+    """Build the per-plane window staging tensor: on the full grid, or,
+    given ``x_start`` (the window's first global plane) and ``n_loc``, on
+    that x-window of n_loc planes (``wrap_x`` reads the window modulo the
+    global nx: the extended slab of the chunked sharded scan); particles
+    outside the window are invalid. Each row carries the hi/lo split of
+    the anchor-relative position (frame-free: a wrapped particle needs no
+    shift), the velocity and radius [and angular velocity], then y, z and
+    rank; rows past a plane's population or not kept carry y = -1."""
     pos = pf.pos
     dev, dtype = pos.device, pos.dtype
     N = pos.shape[0]
     nx, ny, nz = grid.shape
+    nx_global = nx
+    if n_loc is not None:
+        nx = n_loc
     ncells = nx * ny * nz
     C_d = 10 if with_angvel else 7
 
     base, inside = cp.locate(pos, grid)
     valid = pf.active & inside
-    cell = base[:, 0] * (ny * nz) + base[:, 1] * nz + base[:, 2]
+    bx = base[:, 0]
+    if x_start is not None:
+        bx = bx - x_start
+        if wrap_x:
+            bx = torch.remainder(bx, nx_global)
+        valid = valid & (bx >= 0) & (bx < nx)
+    cell = bx * (ny * nz) + base[:, 1] * nz + base[:, 2]
     cell = torch.where(valid, cell, ncells)
     order = torch.argsort(cell, stable=True)
     inv_order = torch.argsort(order, stable=True)

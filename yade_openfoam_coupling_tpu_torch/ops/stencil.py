@@ -245,9 +245,19 @@ def reconstruct(face_vals: Flux) -> torch.Tensor:
     return torch.stack([_mean(face_vals[axis], axis) for axis in range(3)])
 
 
+def _global_edges(ctx, axis: int):
+    """(holds the low global face, holds the high one) of ``axis`` on this
+    rank: both unless the axis is sharded."""
+    if ctx is None or ctx.mesh_axes[axis] is None:
+        return True, True
+    i = ctx.shard_index(axis)
+    return i == 0, i == ctx.shard_count(axis) - 1
+
+
 def constrain_flux(phi: Flux, u_bc: FieldBC, ctx=None) -> Flux:
     """Pin boundary-face fluxes to the BC normal velocity at Dirichlet/slip
-    faces (`constrainHbyA` + `fixedFluxPressure`). Single-device form."""
+    faces (`constrainHbyA` + `fixedFluxPressure`). Under sharding only the
+    ranks holding a global edge pin it."""
     def pin_value(face, a):
         return 0.0 if face.kind == SLIP else face.component(a)
     out = list(phi)
@@ -255,10 +265,11 @@ def constrain_flux(phi: Flux, u_bc: FieldBC, ctx=None) -> Flux:
         lo, hi = u_bc.faces[a]
         f = out[a]
         n = f.shape[a]
-        if lo.kind in (DIRICHLET, SLIP):
+        at_lo, at_hi = _global_edges(ctx, a)
+        if lo.kind in (DIRICHLET, SLIP) and at_lo:
             plane = torch.full_like(_slice(f, 0, 1, a), pin_value(lo, a))
             f = torch.cat([plane, _slice(f, 1, n, a)], dim=a)
-        if hi.kind in (DIRICHLET, SLIP):
+        if hi.kind in (DIRICHLET, SLIP) and at_hi:
             plane = torch.full_like(_slice(f, n - 1, n, a), pin_value(hi, a))
             f = torch.cat([_slice(f, 0, n - 1, a), plane], dim=a)
         out[a] = f
@@ -286,6 +297,11 @@ def adjust_phi(phi: Flux, u_bc: FieldBC, grid: Grid, ctx=None, reduce_sum=None) 
         n = f.shape[a]
         lo_out = -torch.sum(_slice(f, 0, 1, a)) * A
         hi_out = torch.sum(_slice(f, n - 1, n, a)) * A
+        at_lo, at_hi = _global_edges(ctx, a)
+        if not at_lo:
+            lo_out = torch.zeros_like(lo_out)
+        if not at_hi:
+            hi_out = torch.zeros_like(hi_out)
         for side, out in ((0, lo_out), (1, hi_out)):
             if (lo if side == 0 else hi).kind == NEUMANN:
                 adj_out = adj_out + out
@@ -309,10 +325,11 @@ def adjust_phi(phi: Flux, u_bc: FieldBC, grid: Grid, ctx=None, reduce_sum=None) 
     for a, side in planes:
         f = out[a]
         n = f.shape[a]
-        if side == 0:
+        at_lo, at_hi = _global_edges(ctx, a)
+        if side == 0 and at_lo:
             plane = _slice(f, 0, 1, a) * scale - additive
             f = torch.cat([plane, _slice(f, 1, n, a)], dim=a)
-        else:
+        elif side == 1 and at_hi:
             plane = _slice(f, n - 1, n, a) * scale + additive
             f = torch.cat([_slice(f, 0, n - 1, a), plane], dim=a)
         out[a] = f

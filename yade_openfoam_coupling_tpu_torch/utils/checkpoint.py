@@ -32,19 +32,24 @@ def _numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _leaves(key: str, t):
+    """(key, tensor) for a tensor, or for each element of a (nested) tuple
+    keyed by its index: the face fluxes, and the sharded layout's lo-face
+    fluxes, whose elements are tuples themselves."""
+    if isinstance(t, tuple):
+        for i, x in enumerate(t):
+            yield from _leaves(f"{key}.{i}", x)
+    elif t is not None:
+        yield key, t
+
+
 def _entries(state: SimState):
-    """(key, tensor) for every non-None tensor of the state, tuples (the
-    face fluxes) one entry per element."""
+    """(key, tensor) for every non-None tensor of the state."""
     for part in SimState._fields:
         value = getattr(state, part)
         fields = value._asdict().items() if part in _PARTS else [(None, value)]
         for name, t in fields:
-            key = part if name is None else f"{part}.{name}"
-            if isinstance(t, tuple):
-                for i, x in enumerate(t):
-                    yield f"{key}.{i}", x
-            elif t is not None:
-                yield key, t
+            yield from _leaves(part if name is None else f"{part}.{name}", t)
 
 
 def save(path, state: SimState, step: Optional[int] = None) -> str:
@@ -92,7 +97,8 @@ def restore(path, template: SimState, step: Optional[int] = None) -> SimState:
         if like is None:
             return None
         if isinstance(like, tuple):
-            return tuple(load(f"{key}.{i}", x) for i, x in enumerate(like))
+            items = [load_field(f"{key}.{i}", x) for i, x in enumerate(like)]
+            return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
         return load(key, like)
 
     out = {}
