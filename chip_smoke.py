@@ -53,6 +53,15 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
     the window slice with mgpcg under `use_pallas` (B2 on the ring-padded
     slab); each sharded kernel against its plain version at the slab's
     shapes;
+  * the bench entry points at full size: `scripts/bench_1m.py`'s default
+    case (1M particles on 256^3, the planes exchange in 8 slabs, mgpcg)
+    and its `--fast` case (the window exchange, fftpcg) through its own
+    `build_case` and `measure`, with B4 on a 256^3 slab and B1 on the 1M
+    window against their plain versions and the 8-slab exchange against
+    the whole-grid one; `scripts/bench_ladder.py`'s ladder #2 (PISO, B3
+    at 8 x 3) and #3 (the fluidized bed, B1 at 6 slots) with a stage
+    split each; and `python -m yade_openfoam_coupling_tpu_torch bench
+    --small` as a subprocess;
 B2's bf16 entry is held bit for bit against the plain stencil at every
 level of the 128^3 V-cycle on which it runs and through one whole bf16
 V-cycle, and the `use_pallas` chunks (f32 and bf16 V-cycle) print the
@@ -85,9 +94,9 @@ from pathlib import Path
 
 import numpy as np
 
+from yade_openfoam_coupling_tpu_torch.bench import bench_config, lattice_positions, sync
 from yade_openfoam_coupling_tpu_torch.scripts.exchange_timing import (
     cuda_ms,
-    lattice_positions,
     launch_split,
     peak_mb,
 )
@@ -113,49 +122,6 @@ STIFF_TURB, STIFF_DT = (1e-2, 9e-4), 1e-5
 CLOSURES = {"kEqn": "simulationType LES; LES { LESModel kEqn; }",
             "kEpsilon": "simulationType RAS; RAS { RASModel kEpsilon; }",
             "Smagorinsky": "simulationType LES; LES { LESModel Smagorinsky; }"}
-
-
-def bench_config(nx):
-    """bench.py's CaseConfig on an nx^3 grid (h = 1 mm), as port classes."""
-    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
-    from yade_openfoam_coupling_tpu_torch.models.pimple import PIMPLEConfig
-    from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
-    from yade_openfoam_coupling_tpu_torch.models.turbulence import TurbulenceConfig
-    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
-    from yade_openfoam_coupling_tpu_torch.ops import dem
-    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
-    from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
-
-    return cd.CaseConfig(
-        grid=Grid.cube(nx, 1e-3 * nx),
-        bcs=FluidBCs.channel_z(),
-        transport=cd.TransportProperties(nu=1e-6, rho_f=1000.0, rho_p=2500.0),
-        solver="pimple",
-        coupling=cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
-                                   exchange="window", slot_capacity=4, dy_in_kernel=True,
-                                   planes_window=0, window_dynamic=True),
-        dem=dem.DEMConfig(
-            params=dem.ContactParams(kn=100.0, rho_p=2500.0), gravity=(0.0, 0.0, -9.81),
-            rho_f=1000.0, periodic=(True, True, False), wall_axes=(False, False, True),
-            neighbor="cells", cell_capacity=4, max_neighbors=8, refined_neighbors=4,
-            sorted_fetch=True, list_reuse=True, list_rebuild_steps=10,
-            carry_contact=True, substep_unroll=True, pair_layout="channels"),
-        pimple=PIMPLEConfig(n_outer=1, n_correctors=2, pressure=pr.PressureSolverConfig(
-            solver="fftpcg", tol=1e-5, maxiter=40, mg=pr.MGConfig(pre_smooth=4, post_smooth=4))),
-        turbulence=TurbulenceConfig(model="kEqn"),
-        gravity_fluid=(0.0, 0.0, -9.81),
-        n_dem_substeps=4,
-        r_max=RADIUS,
-    )
-
-
-def yade_physics_config(cfg):
-    """cfg with bench.py's `--yade-physics` DEM (bench.py:24-31,122-134,157):
-    the tangential spring history, dynamic substeps up to 8, the rows pair
-    layout, no carried contact."""
-    dem = dataclasses.replace(cfg.dem, carry_contact=False, shear_history=True,
-                              dynamic_substeps=True, pair_layout="rows")
-    return dataclasses.replace(cfg, dem=dem, n_dem_substeps=8)
 
 
 def planes_config(cfg, **coupling_kw):
@@ -261,22 +227,22 @@ def check_close(kernel, name, k, p):
     return float(err.max())
 
 
-def seeded_inputs(cfg, device, C_in, seed=0):
-    """The bench lattice with seeded velocities and angular velocities, and
-    a seeded padded fluid stack of C_in channels (alpha last, in [0.9, 1])."""
+def seeded_inputs(cfg, device, C_in, seed=0, n=N_PARTICLES):
+    """The bench lattice of n particles with seeded velocities and angular
+    velocities, and a seeded padded fluid stack of C_in channels (alpha
+    last, in [0.9, 1])."""
     import torch
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops.coupling_planes import pad_wrap_zero
 
     grid = cfg.grid
     gen = torch.Generator(device=device).manual_seed(seed)
-    pos = torch.as_tensor(lattice_positions(N_PARTICLES, grid.lengths[0]),
-                          dtype=torch.float32, device=device)
+    pos = torch.as_tensor(lattice_positions(n, grid.lengths[0]), dtype=torch.float32,
+                          device=device)
     vel = 1e-2 * torch.randn(pos.shape, generator=gen, device=device)
     ang = 1e-1 * torch.randn(pos.shape, generator=gen, device=device)
-    pf = cp.ParticleFields(pos, vel, ang,
-                           torch.full((N_PARTICLES,), RADIUS, device=device),
-                           torch.ones(N_PARTICLES, dtype=torch.bool, device=device))
+    pf = cp.ParticleFields(pos, vel, ang, torch.full((n,), RADIUS, device=device),
+                           torch.ones(n, dtype=torch.bool, device=device))
     F = 1e-2 * torch.randn((C_in,) + grid.shape, generator=gen, device=device)
     F[-1] = 0.9 + 0.1 * torch.rand(grid.shape, generator=gen, device=device)
     return pf, F, pad_wrap_zero(F, cfg.periodic_axes())
@@ -871,13 +837,14 @@ def cli_config(solver, **case_kw):
     return cfg
 
 
-def stage_phase(cfg, device, card, label, turb=CLI_TURB):
+def stage_phase(cfg, device, card, label, turb=CLI_TURB, state=None):
     """Where one STEPS_PER_RUN-step chunk's time goes, after a warm-up
     chunk: synchronised host-clock time in the exchange, the DEM substeps,
     the fluid step (the turbulence correction and the PIMPLE step, or the
     PISO step), and inside the fluid step the pressure solves. The
     synchronisations add a few ms per step, so the stages are read as
-    shares, not as the slice's rate."""
+    shares, not as the slice's rate. ``state`` replaces the bench lattice's
+    initial state."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
     from yade_openfoam_coupling_tpu_torch.models import turbulence
@@ -900,7 +867,8 @@ def stage_phase(cfg, device, card, label, turb=CLI_TURB):
             return out
         return run
 
-    state = initial_state(cfg, N_PARTICLES, device, turb=turb)
+    if state is None:
+        state = initial_state(cfg, N_PARTICLES, device, turb=turb)
     run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
     state, _ = run(state)
     originals = [(mod, name, getattr(mod, name)) for mod, name in spots]
@@ -1016,6 +984,28 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
+def labelled_checks(label, d):
+    """bench.py's three checks (`bench.bench_checks`) on per-step
+    diagnostics (numpy), a failure named by label. -> (largest final
+    residual, largest continuity error)."""
+    from yade_openfoam_coupling_tpu_torch.bench import bench_checks as checks
+    try:
+        return checks(d)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+
+
+def check_finite(label, state):
+    """Every fluid, particle and turbulence field of state is finite."""
+    import torch
+    fs, ps = state.fluid, state.particles
+    for name, t in (("u", fs.u), ("p", fs.p), ("alpha", fs.alpha), ("pos", ps.pos),
+                    ("vel", ps.vel), ("k", state.turb.k), ("epsilon", state.turb.epsilon),
+                    ("nut", state.turb.nut)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite values in {name}")
+
+
 def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report=None,
                 turb=CLI_TURB, n=None, dt=DT):
     """One path at full size, as bench.py runs it: set-up and a warm-up
@@ -1053,23 +1043,8 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report
 
     d = {k: torch.cat([getattr(x, k).reshape(-1) for x in all_diags]).cpu().numpy()
          for k in all_diags[0]._fields}
-    p_final = float(d["p_final_residual"].max())
-    p_init = float(d["p_initial_residual"].max())
-    cont = float(np.abs(d["cont_err_local"]).max())
-    n_over = int(d["n_contact_overflow"].max() + d["n_coupling_overflow"].max())
-    if not p_final <= max(1e-5 * max(p_init, 1e-30), 5e-6):
-        raise AssertionError(f"{label}: pressure solve not converged: final {p_final:g} "
-                             f"vs initial {p_init:g}")
-    if not cont < 1e-5:
-        raise AssertionError(f"{label}: continuity error {cont:g}")
-    if n_over != 0:
-        raise AssertionError(f"{label}: capacity overflows: {n_over}")
-    fs, ps = state.fluid, state.particles
-    for name, t in (("u", fs.u), ("p", fs.p), ("alpha", fs.alpha), ("pos", ps.pos),
-                    ("vel", ps.vel), ("k", state.turb.k), ("epsilon", state.turb.epsilon),
-                    ("nut", state.turb.nut)):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{label}: non-finite values in {name}")
+    p_final, cont = labelled_checks(label, d)
+    check_finite(label, state)
     for name, k in per_step.items():
         if launches[name] < k * n_steps:
             raise AssertionError(f"{label}: kernel {name} launched {launches[name]} "
@@ -1078,42 +1053,45 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report
             if timed_runs else "")
     print(f"{label} {n} particles {cfg.grid.shape[0]}^3: {rate}p_iters "
           f"{d['p_iters'].min()}-{d['p_iters'].max()}, p residual {p_final:.3e}, "
-          f"continuity {cont:.3e}, overflows {n_over}, launches "
+          f"continuity {cont:.3e}, overflows 0, launches "
           f"{ {k: launches[k] for k in per_step} } in {n_steps} steps"
           + (f"; {report(state, d)}" if report else ""), flush=True)
     return launches, d["p_iters"]
 
 
-def chunked_phase(cfg, device):
-    """One 4-slab chunked planes exchange at full size against the
-    whole-grid one: B4 on slabs at x_off 0, 32, 64, 96. The fields and
-    forces agree to KERNEL_RTOL of their scale (the same per-slot
-    arithmetic; only the halo planes are summed in another order)."""
+def chunked_phase(cfg, device, n=N_PARTICLES, chunks=4):
+    """One chunked planes exchange of `chunks` slabs at full size (n
+    particles on cfg's grid) against the whole-grid one: B4 on each slab.
+    The fields and forces agree to KERNEL_RTOL of their scale (the same
+    per-slot arithmetic; only the halo planes are summed in another
+    order)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
 
     grid, periodic = cfg.grid, cfg.periodic_axes()
-    pf, F, _ = seeded_inputs(cfg, device, 10, seed=1)
+    pf, F, _ = seeded_inputs(cfg, device, 10, seed=1, n=n)
     fields = (F[0:3], F[3:6], F[6:9], F[0:3], F[0:3])
     args = (grid, periodic, cfg.transport.nu, cfg.transport.rho_f, DT)
-    whole = cpp.gaussian_coupling_planes(pf, *fields, *args, cfg.coupling, prev_alpha=F[9])
+    whole = cpp.gaussian_coupling_planes(pf, *fields, *args,
+                                         dataclasses.replace(cfg.coupling, planes_chunks=1),
+                                         prev_alpha=F[9])
     chunked = cpp.gaussian_coupling_planes_chunked(
-        pf, *fields, *args, dataclasses.replace(cfg.coupling, planes_chunks=4),
+        pf, *fields, *args, dataclasses.replace(cfg.coupling, planes_chunks=chunks),
         prev_alpha=F[9])
+    label = f"chunked planes exchange ({chunks} slabs) vs whole grid at {grid.shape[0]}^3/{n}"
     if int(whole.n_overflow) != 0 or int(chunked.n_overflow) != 0:
-        raise AssertionError(f"chunked phase: overflows {int(whole.n_overflow)} (whole), "
-                             f"{int(chunked.n_overflow)} (4 slabs)")
-    if not torch.equal(whole.found, chunked.found) or int(whole.found.sum()) != N_PARTICLES:
-        raise AssertionError("chunked phase: found differs from the whole-grid exchange")
+        raise AssertionError(f"{label}: overflows {int(whole.n_overflow)} (whole), "
+                             f"{int(chunked.n_overflow)} ({chunks} slabs)")
+    if not torch.equal(whole.found, chunked.found) or int(whole.found.sum()) != n:
+        raise AssertionError(f"{label}: found differs from the whole-grid exchange")
     worst = 0.0
     for name in ("alpha", "u_particle", "u_source", "u_source_drag", "force"):
         a, b = getattr(chunked, name), getattr(whole, name)
         rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
         worst = max(worst, rel)
         if not rel <= KERNEL_RTOL:
-            raise AssertionError(f"chunked phase: {name} differs by {rel:.3e} of its scale")
-    print(f"chunked planes exchange (4 slabs) vs whole grid at {NX}^3/{N_PARTICLES}: "
-          f"worst relative difference {worst:.3e}, overflows 0", flush=True)
+            raise AssertionError(f"{label}: {name} differs by {rel:.3e} of its scale")
+    print(f"{label}: worst relative difference {worst:.3e}, overflows 0", flush=True)
 
 
 def keps_report(cfg, helm):
@@ -1308,19 +1286,10 @@ def got_iters(view):
 
 
 def bench_checks(label, d, n_steps):
-    """bench.py's three checks on per-step diagnostics (numpy): the
-    pressure residual, continuity and zero overflows, the sharded path's
-    migration and ghost overflows included."""
-    p_final = float(d["p_final_residual"].max())
-    p_init = float(d["p_initial_residual"].max())
-    cont = float(np.abs(d["cont_err_local"]).max())
-    n_over = int(d["n_contact_overflow"].max() + d["n_coupling_overflow"].max()
-                 + d["n_shard_overflow"].max())
-    if not p_final <= max(1e-5 * max(p_init, 1e-30), 5e-6):
-        raise AssertionError(f"{label}: pressure solve not converged: final {p_final:g} vs "
-                             f"initial {p_init:g}")
-    if not cont < 1e-5:
-        raise AssertionError(f"{label}: continuity error {cont:g}")
+    """bench.py's three checks on per-step diagnostics (numpy), the sharded
+    path's migration and ghost overflows counted as overflows too."""
+    p_final, cont = labelled_checks(label, d)
+    n_over = int(d["n_shard_overflow"].max())
     if n_over != 0:
         raise AssertionError(f"{label}: overflows {n_over}")
     if len(d["n_found"]) != n_steps:
@@ -1406,45 +1375,58 @@ def slab_kernel_entries(cfg, mesh, state):
     for (mod, name), [(a, kw)] in zip(spots, seen):
         if name == "distribute_rolls":
             out["rolls_deposit_sharded"] = rolls_entry(*a)
-            continue
-        plain_fn = getattr(mod, name + "_reference")
-        kern_fn = getattr(mod, name)
-        pkw = {k: v for k, v in kw.items() if k != "max_occupied"}
-        plain, kern = plain_fn(*a, **pkw), kern_fn(*a, **kw)
-        plain = plain if isinstance(plain, tuple) else (plain,)
-        kern = kern if isinstance(kern, tuple) else (kern,)
-        err = max(check_close(name, str(i), k, p) for i, (k, p) in enumerate(zip(kern, plain))
-                  if isinstance(k, torch.Tensor))
-        ms, dev_ms = kernel_times(lambda: kern_fn(*a, **kw))
-        plain_ms = cuda_ms(lambda: plain_fn(*a, **pkw), 5)
-        outs = [t for t in kern if isinstance(t, torch.Tensor)]
-        if name == "window_exchange_padded":
-            Fp, dat_win = a[0], a[1]
-            counts = kw["counts"]
-            live = int(counts.clamp(max=dat_win.shape[-1]).sum())
-            n_bytes = (nbytes(Fp, counts, *outs)
-                       + live * dat_win.shape[1] * dat_win.element_size())
-            flops = exchange_flops(live, 19, Fp.shape[0])
-            key = "window_exchange_sharded"
-        elif name == "deposit_stacks":
-            V, D = a[0], a[1]
-            d_bytes, n_occ = slot_table_bytes(D)
-            n_bytes = nbytes(*outs, D[6]) + V.shape[0] * n_occ * V.element_size() + 12 * n_occ
-            flops = exchange_flops(n_occ, 19, 10)
-            key = "planes_deposit_sharded"
         else:
-            Fp, D = a[0], a[1]
-            d_bytes, n_occ = slot_table_bytes(D)
-            n_bytes = nbytes(Fp, *outs) + d_bytes
-            flops = exchange_flops(n_occ, 19, Fp.shape[0])
-            key = ("planes_fused_sharded" if name == "fused_exchange_padded"
-                   else "planes_interp_sharded")
-        print(f"kernel {key} (first input {tuple(a[0].shape)}, x_off {a[6 if key == 'planes_deposit_sharded' else 5]}): "
-              f"max_abs_err {err:.3e}; kernel {ms:.4f} ms ({dev_ms:.4f} ms device only), "
-              f"plain {plain_ms:.3f} ms", flush=True)
-        out[key] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                    **bound(n_bytes, flops), "library_ms": None}
+            key = SLAB_KEYS[name]
+            out[key] = captured_entry(mod, name, a, kw, key)
     return out
+
+
+SLAB_KEYS = {"window_exchange_padded": "window_exchange_sharded",
+             "fused_exchange_padded": "planes_fused_sharded",
+             "interp_planes_padded": "planes_interp_sharded",
+             "deposit_stacks": "planes_deposit_sharded"}
+
+
+def captured_entry(mod, name, a, kw, key):
+    """The exchange kernel `mod.name` (B1, B4, B5 or B6) on the arguments
+    (a, kw) of a call captured on a path, against its plain version: its
+    kernels-line entry, printed under `key`."""
+    import torch
+    plain_fn = getattr(mod, name + "_reference")
+    kern_fn = getattr(mod, name)
+    pkw = {k: v for k, v in kw.items() if k != "max_occupied"}
+    plain, kern = plain_fn(*a, **pkw), kern_fn(*a, **kw)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    kern = kern if isinstance(kern, tuple) else (kern,)
+    err = max(check_close(name, str(i), k, p) for i, (k, p) in enumerate(zip(kern, plain))
+              if isinstance(k, torch.Tensor))
+    del plain
+    ms, dev_ms = kernel_times(lambda: kern_fn(*a, **kw))
+    plain_ms = cuda_ms(lambda: plain_fn(*a, **pkw), 5)
+    outs = [t for t in kern if isinstance(t, torch.Tensor)]
+    if name == "window_exchange_padded":
+        Fp, dat_win = a[0], a[1]
+        counts = kw["counts"]
+        live = int(counts.clamp(max=dat_win.shape[-1]).sum())
+        n_bytes = (nbytes(Fp, counts, *outs)
+                   + live * dat_win.shape[1] * dat_win.element_size())
+        flops = exchange_flops(live, 19, Fp.shape[0])
+    elif name == "deposit_stacks":
+        V, D = a[0], a[1]
+        d_bytes, n_occ = slot_table_bytes(D)
+        n_bytes = nbytes(*outs, D[6]) + V.shape[0] * n_occ * V.element_size() + 12 * n_occ
+        flops = exchange_flops(n_occ, 19, 10)
+    else:
+        Fp, D = a[0], a[1]
+        d_bytes, n_occ = slot_table_bytes(D)
+        n_bytes = nbytes(Fp, *outs) + d_bytes
+        flops = exchange_flops(n_occ, 19, Fp.shape[0])
+    x_off = a[6 if name == "deposit_stacks" else 5]
+    print(f"kernel {key} (first input {tuple(a[0].shape)}, x_off {x_off}): "
+          f"max_abs_err {err:.3e}; kernel {ms:.4f} ms ({dev_ms:.4f} ms device only), "
+          f"plain {plain_ms:.3f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(n_bytes, flops), "library_ms": None}
 
 
 def sharded_timed_split(cfg, mesh, state, card, label):
@@ -1543,12 +1525,6 @@ def sharded_phase(cfg, device, card, backend="nccl"):
     return entries, {"window_exchange_sharded": launches["window_exchange"]}, ref10
 
 
-def _sync(device):
-    import torch
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def two_rank_run(mesh, cfg, n, n_steps):
     """One rank of phase 2: the bench state built on this rank's device,
     n_steps of the chunked sharded scan, gathered to rank 0. -> (rank,
@@ -1568,10 +1544,10 @@ def two_rank_run(mesh, cfg, n, n_steps):
     record.launches = 0
     cw.window_exchange_padded = record
     try:
-        _sync(mesh.device)
+        sync(mesh.device)
         t0 = time.perf_counter()
         out, d = scan(s)
-        _sync(mesh.device)
+        sync(mesh.device)
         ms = 1e3 * (time.perf_counter() - t0) / n_steps
     finally:
         cw.window_exchange_padded = orig
@@ -1699,6 +1675,144 @@ def sharded_chunks_phase(cfg, device, card, backend="nccl"):
     return entries, launched
 
 
+def unstaged_share(grid, pos, cap):
+    """The share of the exchange cells pass's blocks whose halo holds more
+    records than its shared memory stages (`csrc/exchange_common.cuh`: a
+    block is a band of band_rows(nz) rows of one plane with its +-1-row
+    halo, kSmemRecs = 256 records at most; such a block reads its
+    sources' records from device memory), for particles at pos, each cell
+    holding min(count, cap) records."""
+    import torch
+    nx, ny, nz = grid.shape
+    h = torch.tensor(grid.spacing, device=pos.device)
+    o = torch.tensor(grid.origin, device=pos.device)
+    ijk = torch.floor((pos - o) / h).long()
+    for a, n in enumerate(grid.shape):
+        ijk[:, a].clamp_(0, n - 1)
+    flat = (ijk[:, 0] * ny + ijk[:, 1]) * nz + ijk[:, 2]
+    cnt = torch.bincount(flat, minlength=grid.ncells).clamp(max=cap).view(nx, ny, nz)
+    per_row = cnt.sum(2)
+    band = max(1, min(8, 2048 // nz - 2))
+    over = []
+    for y0 in range(0, ny, band):
+        rows = min(band, ny - y0)
+        halo = torch.arange(y0 - 1, y0 + rows + 1, device=pos.device) % ny
+        over.append(per_row[:, halo].sum(1) > 256)
+    return float(torch.stack(over).float().mean())
+
+
+def bench_1m_phase(device, card, fast):
+    """`scripts/bench_1m.py` (default: the planes exchange in 8 slabs with
+    mgpcg; ``fast``: the window exchange with fftpcg) at 1M/256^3 through
+    its own `build_case` and `measure` (a 3-step warm-up call, one timed
+    3-step call): no overflow, every particle found, a finite state, and
+    B4 launched once a slab a step (B1 once a step). Prints steps/s, the
+    pressure iterations, the last residual against bench.py's criterion
+    and the timed call's peak device memory. Then the exchange kernel of
+    the first exchange of the final state against its plain version (B4
+    on the first slab, B1 on the whole window), and for the default case
+    the 8-slab exchange against the whole-grid one at 256^3. -> (the
+    kernel's launches in the 6 steps, its kernels-line entry)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
+    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
+    from yade_openfoam_coupling_tpu_torch.scripts import bench_1m
+
+    argv = ["--fast"] if fast else []
+    label = f"bench_1m {' '.join(argv) or '(default)'}"
+    t0 = time.perf_counter()
+    cfg, state = bench_1m.build_case(argv, device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    mod, name = (cw, "window_exchange_padded") if fast else (cpp, "fused_exchange_padded")
+    kernel, per_step = ("window_exchange", 1) if fast else ("planes_fused",
+                                                            cfg.coupling.planes_chunks)
+    reset_launches()
+    res, state = bench_1m.measure(cfg, state, device)
+    launches = read_launches()[kernel]
+    n_steps = 2 * bench_1m.N_STEPS
+    n = bench_1m.N_PARTICLES
+    if res["overflows"] != [0, 0, 0]:
+        raise AssertionError(f"{label}: overflows {res['overflows']}")
+    if res["n_found"] != n:
+        raise AssertionError(f"{label}: {res['n_found']} particles found of {n}")
+    check_finite(label, state)
+    if launches != per_step * n_steps:
+        raise AssertionError(f"{label}: {kernel} launched {launches} times in {n_steps} "
+                             f"steps ({per_step} a step expected)")
+    bound_p = max(1e-5 * res["p_initial_residual_max"], 5e-6)
+    print(f"{label} {n} particles 256^3: {res['value']:.4f} steps/s [{card}], set-up "
+          f"{setup:.2f} s; p_iters {res['p_iters']}, last p residual "
+          f"{res['p_final_residual']:.3e} against bench.py's bound {bound_p:.3e} "
+          f"({'met' if res['p_converged'] else 'NOT met'}); peak device memory of the timed "
+          f"call {res['peak_mb']:.1f} MB; overflows 0, found {n}, {kernel} {launches} in "
+          f"{n_steps} steps", flush=True)
+    with capture_first(mod, name) as seen:
+        cd.exchange(state.fluid, state.particles, cfg.grid, cfg.bcs, cfg.transport,
+                    cfg.coupling, state.dt)
+    torch.cuda.synchronize()
+    [(a, kw)] = seen
+    small = bench_config(NX).grid
+    lattice = torch.as_tensor(lattice_positions(N_PARTICLES, small.lengths[0]),
+                              dtype=torch.float32, device=device)
+    print(f"{label}: share of the cells pass's blocks past its shared memory (they read "
+          f"records from device memory): "
+          f"{unstaged_share(cfg.grid, state.particles.pos, cfg.coupling.slot_capacity):.3f} "
+          f"at 256^3/{n}, {unstaged_share(small, lattice, 4):.3f} on the "
+          f"{NX}^3/{N_PARTICLES} lattice", flush=True)
+    del state
+    entry = captured_entry(mod, name, a, kw, kernel + "_256")
+    del a, kw, seen
+    if not fast:
+        chunked_phase(cfg, device, n=n, chunks=cfg.coupling.planes_chunks)
+    torch.cuda.empty_cache()
+    return launches, entry
+
+
+def ladder_phase(device, card):
+    """`scripts/bench_ladder.py`'s configurations at full size through its
+    own `run_case`, with one timed 50-step chunk after the warm-up chunk
+    (the reference times 3): ladder #2 must launch B3 (the point-force
+    deposit, 8 corners x 3 channels on 32^3) and ladder #3 B1 (6 slots a
+    cell) once a step, and both end finite. Prints steps/s and the
+    overflow counts (the fluidized bed's uniform cloud starts with
+    overlapping pairs; the reference asserts nothing)."""
+    from yade_openfoam_coupling_tpu_torch.scripts import bench_ladder as bl
+
+    for key, kernel in (("#2", "rolls_deposit"), ("#3", "window_exchange")):
+        reset_launches()
+        res, state = bl.run_case(key, device, reps=1)
+        launches = read_launches()[kernel]
+        n_steps = 2 * bl.N_STEPS
+        check_finite(res["metric"], state)
+        if launches < n_steps:
+            raise AssertionError(f"{res['metric']}: {kernel} launched {launches} times in "
+                                 f"{n_steps} steps")
+        print(f"{res['metric']}: {res['value']:.3f} steps/s [{card}] (one timed chunk of "
+              f"{bl.N_STEPS}); overflows (contact, coupling) {res['overflows']}; p_iters "
+              f"{res['p_iters']}; {kernel} {launches} in {n_steps} steps", flush=True)
+        cfg, state = bl.CASES[key][1](device)
+        stage_phase(cfg, device, card, f"ladder {key}", state=state)
+
+
+def cli_bench_phase(card):
+    """`python -m yade_openfoam_coupling_tpu_torch bench --small` as a
+    subprocess: exit 0 and one JSON line with the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "yade_openfoam_coupling_tpu_torch", "bench",
+                           "--small"], capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI bench --small exited with {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line["card"] != card or not line["value"] > 0:
+        raise AssertionError(f"CLI bench --small printed {line}")
+    print(f"CLI bench --small in {time.perf_counter() - t0:.1f} s with start-up: "
+          f"{json.dumps(line)}", flush=True)
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -1767,7 +1881,7 @@ def main() -> int:
     launches["planes_fused"] = runs["planes_fused"]
     stage_phase(cfg, device, smi, "window slice")
     stage_phase(pcfg, device, smi, "planes slice")
-    ycfg = yade_physics_config(cfg)
+    ycfg = bench_config(NX, yade_physics=True)
     slice_phase(ycfg, device, smi, "yade-physics slice", ["window_exchange"], timed_runs=3,
                 report=spring_report)
     stage_phase(ycfg, device, smi, "yade-physics slice")
@@ -1872,6 +1986,12 @@ def main() -> int:
     launches.update(launched)
 
     chunked_phase(pcfg, device)
+    # the bench scripts at full size: 1M/256^3 both ways, the ladder, the CLI's bench
+    for fast in (False, True):
+        key = ("window_exchange" if fast else "planes_fused") + "_256"
+        launches[key], kern[key] = bench_1m_phase(device, smi, fast)
+    ladder_phase(device, smi)
+    cli_bench_phase(smi)
     grid16 = bench_config(16).grid
     small_check(device, bench_config(16), "window")
     small_check(device, planes_config(bench_config(16)), "planes")
@@ -1880,7 +2000,7 @@ def main() -> int:
     small_check(device, dataclasses.replace(with_use_pallas(picfg), grid=grid16,
                                             solid=box_solid(grid16.shape, (5, 6, 4), (9, 10, 8))),
                 "PISO, box obstacle, use_pallas")
-    small_check(device, yade_physics_config(bench_config(16)), "yade-physics, loaded springs",
+    small_check(device, bench_config(16, yade_physics=True), "yade-physics, loaded springs",
                 n=500, particles=closing_pairs)
     small_check(device, dataclasses.replace(slcfg, grid=grid16), "slots")
     # (not the bf16 V-cycle: PyTorch rounds bf16 divisions by a scalar
@@ -1910,7 +2030,10 @@ def main() -> int:
                                          JAX_OPS + "coupling_planes.py:278"),
                "planes_deposit_sharded": ("planes_exchange.cu",
                                           JAX_OPS + "coupling_planes.py:404"),
-               "laplacian_sharded": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37")}
+               "laplacian_sharded": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
+               "planes_fused_256": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
+               "window_exchange_256": ("window_exchange.cu",
+                                       JAX_OPS + "coupling_window.py:162")}
     entries = []
     for name, e in kern.items():
         src, replaces = sources[name]

@@ -173,6 +173,76 @@ def test_planes_fused_kernel_matches_plain(cuda, periodic, extras, slab):
     _assert_channels_close(kern[2], plain[2])
 
 
+GRID_256 = Grid.cube(256, 0.256)
+CHANNEL = (True, True, False)
+
+
+def _lattice_1m(device):
+    """bench_1m's case: 1M particles on bench.py's jittered lattice over
+    256^3 (h = 1 mm), with seeded velocities and angular velocities, and a
+    seeded padded 10-channel fluid stack of the whole grid."""
+    from yade_openfoam_coupling_tpu_torch.bench import lattice_positions
+    n = 1_000_000
+    gen = torch.Generator(device=device).manual_seed(11)
+    pos = torch.as_tensor(lattice_positions(n, GRID_256.lengths[0]), dtype=torch.float32,
+                          device=device)
+    pf = cp.ParticleFields(pos, 1e-2 * torch.randn(pos.shape, generator=gen, device=device),
+                           1e-1 * torch.randn(pos.shape, generator=gen, device=device),
+                           torch.full((n,), 4e-4, device=device),
+                           torch.ones(n, dtype=torch.bool, device=device))
+    F = 1e-2 * torch.randn((10,) + GRID_256.shape, generator=gen, device=device)
+    F[-1] = 0.9 + 0.1 * torch.rand(GRID_256.shape, generator=gen, device=device)
+    return pf, pad_wrap_zero(F, CHANNEL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab", [0, 3, 7])
+def test_planes_fused_kernel_on_a_256_slab(cuda, slab):
+    """B4 on one slab of bench_1m's default exchange (8 slabs of 32 planes
+    of 256^2 at 1M particles, 'col' staging), as the chunked exchange cuts
+    it, against its plain version; the first, a middle and the last slab
+    (whose upper halo plane wraps)."""
+    cfg = cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
+                            exchange="planes", slot_capacity=4, planes_chunks=8,
+                            packed_bin="col", dy_in_kernel=True)
+    pf, Fp = _lattice_1m(cuda)
+    x0, nxc = 32 * slab, 32
+    Fp = Fp[:, x0:x0 + nxc + 2].contiguous()
+    D = cpp.bin_particles_planes(pf, GRID_256, 4, packed_bin="col", x_start=x0, n_loc=nxc).D
+    args = (Fp, D, GRID_256, CHANNEL, cfg, x0, 1e-6, 1000.0)
+    plain = cpp.fused_exchange_padded_reference(*args)
+    kern = cpp.fused_exchange_padded(*args, max_occupied=pf.pos.shape[0])
+    torch.cuda.synchronize()
+    assert kern[1] == plain[1]
+    assert int((D[6] > 0).sum()) > 10_000
+    _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
+    _assert_channels_close(kern[2], plain[2])
+
+
+@pytest.mark.cuda
+def test_window_kernel_on_the_1m_window(cuda):
+    """B1 on bench_1m --fast's whole window (1M particles on 256^3, W =
+    10,240 rows a plane, every particle inside its plane's window), where a
+    fifth of the cells pass's blocks hold more records than their shared
+    memory, against its plain version."""
+    cfg = cp.CouplingConfig(gaussian=True, lag_alpha=True, stencil_shape="sphere2",
+                            exchange="window", slot_capacity=4, packed_unbin=True,
+                            dy_in_kernel=True, window_dynamic=True)
+    pf, Fp = _lattice_1m(cuda)
+    W = cw.window_size(pf.pos.shape[0], 256, cfg.planes_window)
+    assert W == 10_240
+    bins = cw.window_bins(pf, GRID_256, 4, W)
+    assert int(bins.counts.max()) <= W and int(bins.counts.sum()) == pf.pos.shape[0]
+    args = (Fp, bins.dat_win, GRID_256, CHANNEL, cfg, 0, 1e-6, 1000.0)
+    plain = cw.window_exchange_padded_reference(*args, counts=bins.counts)
+    kern = cw.window_exchange_padded(*args, counts=bins.counts)
+    torch.cuda.synchronize()
+    assert kern[1] == plain[1]
+    for o, r in ((kern[0], plain[0]), (kern[2], plain[2])):
+        _assert_channels_close(o.reshape(o.shape[0] * o.shape[1], -1),
+                               r.reshape(r.shape[0] * r.shape[1], -1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("periodic,extras,slab", PLANES_CASES)
 def test_planes_interp_and_deposit_kernels_match_plain(cuda, periodic, extras, slab):

@@ -11,8 +11,12 @@ CUDA device and there is none). Particle initial state comes from
 --random-particles N. `pimplefoam` runs the sparse Gaussian exchange, or
 with ``--fast`` the planes exchange; `icofoam` runs PISO with the
 point-force exchange (`cases/example_icoFoamYade` is its example case).
-The JAX package's `bench` subcommand runs its own `bench.py` and has no
-counterpart here.
+
+    python -m yade_openfoam_coupling_tpu_torch bench [--small] [--device D]
+
+runs the port's bench (`bench.py` of this package: bench.py's case and
+protocol, one JSON line), as the JAX package's `bench` runs its root
+`bench.py`; it takes that module's flags.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+from . import bench
 
 
 def _load_particles(args, grid):
@@ -137,11 +143,14 @@ def build_parser() -> argparse.ArgumentParser:
         s.add_argument("--device", default="cuda",
                        help="torch device to run on (default cuda; cpu runs the "
                             "kernels' plain versions)")
+    bench.add_arguments(sub.add_parser("bench", help="the port's bench (bench.py's case)"))
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "bench":
+        return bench.run_bench(args)
     return _run_solver(args, "piso" if args.cmd == "icofoam" else "pimple")
 
 

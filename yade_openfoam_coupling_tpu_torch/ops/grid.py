@@ -90,6 +90,15 @@ class FieldBC:
         return FieldBC(tuple(rows))
 
 
+# No-slip box / channel presets used by the solvers.
+def noslip_box_U() -> FieldBC:
+    return FieldBC.box(DIRICHLET, 0.0)
+
+
+def zerograd_box_p() -> FieldBC:
+    return FieldBC.box(NEUMANN, 0.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """Static (hashable) description of a uniform Cartesian grid."""

@@ -40,16 +40,6 @@ NU, RHO_F = 1e-6, 1000.0
 PERIODIC = (True, True, False)
 
 
-def lattice_positions(n, length, seed=0):
-    """bench.py's jittered non-overlapping lattice."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    k = int(np.ceil(n ** (1.0 / 3.0)))
-    g = np.stack(np.meshgrid(*[np.linspace(0.1 * length, 0.9 * length, k)] * 3,
-                             indexing="ij"), -1).reshape(-1, 3)[:n]
-    return g + rng.uniform(-0.2 * length / k, 0.2 * length / k, g.shape)
-
-
 def cuda_ms(fn, reps, warmup=2, device_only=False):
     """Median milliseconds of fn() over reps runs, each between CUDA events,
     after `warmup` untimed runs (the first timed calls of a run otherwise
@@ -117,6 +107,7 @@ def main(argv=None) -> int:
         print("exchange_timing: no CUDA device", file=sys.stderr)
         return 2
     from yade_openfoam_coupling_tpu_torch import kernels
+    from yade_openfoam_coupling_tpu_torch.bench import lattice_positions
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
