@@ -25,6 +25,11 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
     terminal velocity must be Stokes';
   * B7, the per-plane dynamic-trip-count staging of the prototype
     `scripts/proto_dynwin.py`, through its own script;
+  * the k-d tree locator (`native/`): a tree over the 128^3 grid's
+    2,097,152 cell centres uploaded to the card, `nearest` at the 100k
+    particles, `range_query` at r = 1.5h from each particle's cell centre
+    (the 19 `sphere2` cells) and `bin_points`; both tree kernels bit for
+    bit against the host library, `nearest` against `locate`;
   * the planes slice's CLI with more than 8 slots a cell: `pimplefoam
     --fast --slot-capacity 9 <case>`, a few steps;
   * the `--yade-physics` slice: bench.py's configuration with the
@@ -106,6 +111,7 @@ STEPS_PER_RUN, TIMED_RUNS = 10, 2
 CAPACITIES = (9, 16)          # slot capacities past one byte of rank bits
 KERNEL_RTOL = 1e-5
 JAX_OPS = "yade_openfoam_coupling_tpu/ops/"
+JAX_NATIVE = "yade_openfoam_coupling_tpu/native/"
 PORT_CSRC = "yade_openfoam_coupling_tpu_torch/csrc/"
 W_CHUNK = 512                 # the prototype's staging chunk (proto_dynwin.py)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -729,6 +735,96 @@ def dynwin_script_phase(card):
     return dw.stage_planes.launches
 
 
+def native_phase(device, card):
+    """The k-d tree locator (`native/`) at 128^3 / 100k: the tree over the
+    main path's 2,097,152 cell centres, queried at its particles
+    (`scripts/meshtree_timing.py`'s case). The path, its launch counts from
+    0 just before and read just after: the card tree's host build and
+    upload, `nearest` at the particles, `range_query` at r = 1.5h from each
+    particle's cell centre, `bin_points` of the particles. Then both
+    kernels bit for bit against the host library (idx, d2, counts and
+    members, also of a range capped at 8 of its 19 hits); nearest's cell
+    against `ops.coupling.locate` (float32) for every particle farther than
+    1e-4 h from a face; the 19 `sphere2` cells of every range in the
+    interior; `bin_points` on the card against the CPU. -> (kernel
+    entries, launches)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.native import bindings as nb
+    from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
+    from yade_openfoam_coupling_tpu_torch.scripts import meshtree_timing as mt
+
+    t_phase = time.perf_counter()
+    grid = bench_config(NX).grid
+    h, (nx, ny, nz) = grid.spacing[0], grid.shape
+    radius = mt.RADIUS_CELLS * h
+    pts = mt.cell_centres(NX, h)
+    q = mt.particle_queries(N_PARTICLES, NX, h)
+    reset_launches()
+    t0 = time.perf_counter()
+    tree = nb.MeshTree(pts, device=device)
+    qd = torch.as_tensor(q, device=device)
+    idx, d2 = tree.nearest(qd)
+    qc = tree.pts[idx.long()]
+    ridx, rn = tree.range_query(qc, radius, mt.CAP)
+    bins = nb.bin_points(qd, grid.origin, grid.spacing, grid.shape, device=device)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if k.startswith("meshtree")}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"native path: a tree kernel did not launch: {launches}")
+
+    t0 = time.perf_counter()
+    host = nb.MeshTree(pts, device="cpu")
+    build_s = time.perf_counter() - t0
+    qc_h = qc.cpu().numpy()
+    checks = {"nearest": ((idx, d2), host.nearest(q)),
+              "range": ((ridx, rn), host.range_query(qc_h, radius, mt.CAP)),
+              "range, cap 8": (tree.range_query(qc, radius, 8), host.range_query(qc_h, radius, 8))}
+    for name, (got, ref) in checks.items():
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)):
+            raise AssertionError(f"native path: {name} on the card differs from the host library")
+    if not bool((checks["range, cap 8"][1][1] == 8).all()):
+        raise AssertionError("native path: a range capped at 8 kept fewer than 8 cells")
+
+    cell, inside = cp.locate(torch.as_tensor(q, dtype=torch.float32, device=device), grid)
+    flat = (cell[:, 0].long() * ny + cell[:, 1]) * nz + cell[:, 2]
+    s = (q - np.asarray(grid.origin)) / h
+    frac = s - np.floor(s)
+    far = torch.as_tensor(np.minimum(frac, 1.0 - frac).min(1) > 1e-4, device=device)
+    if not bool(inside.all()) or not torch.equal(idx.long()[far], flat[far]):
+        raise AssertionError("native path: nearest's cell differs from locate's away from faces")
+    if not torch.equal(bins[0].long()[far], flat[far]):
+        raise AssertionError("native path: bin_points' cell differs from locate's")
+
+    ijk = torch.stack([idx // (ny * nz), idx // nz % ny, idx % nz], 1).long()
+    interior = ((ijk >= 1) & (ijk <= torch.tensor([nx, ny, nz], device=device) - 2)).all(1)
+    off = torch.as_tensor(cp.stencil_offsets(cp.CouplingConfig(stencil_shape="sphere2")),
+                          device=device)
+    nb_ijk = ijk[:, None, :] + off[None]
+    expect = (nb_ijk[..., 0] * ny + nb_ijk[..., 1]) * nz + nb_ijk[..., 2]
+    got = ridx[:, :19].long()
+    if (not bool((rn[interior] == 19).all()) or not bool((ridx[:, 19:] == -1).all())
+            or not torch.equal(got.sort(1).values[interior], expect.sort(1).values[interior])):
+        raise AssertionError("native path: a range at 1.5h is not the cell's sphere2 stencil")
+    for a, b in zip(bins, nb.bin_points(q, grid.origin, grid.spacing, grid.shape, device="cpu")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("native path: bin_points on the card differs from the CPU")
+
+    entries = mt.time_queries(tree, host, q, qc_h, radius)
+    for name, e in entries.items():
+        print(f"kernel {name} ({NX}^3 centres, {N_PARTICLES} queries, {e['mean_visits']:.2f} "
+              f"visits a query): bit for bit with the host library; {e['ms']:.4f} ms "
+              f"({e['device_ms']:.4f} ms device only), host library {e['plain_ms']:.3f} ms, "
+              f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}; every byte once "
+              f"{e['bound_once_ms']:.4f} ms) [{card}]", flush=True)
+    print(f"native path: {launches} on the path ({path_s:.3f} s with the card tree's host "
+          f"build and upload); host tree build {build_s:.3f} s; nearest = locate for "
+          f"{int(far.sum())} of {N_PARTICLES} particles (the rest within 1e-4 h of a face); "
+          f"{int(interior.sum())} ranges of 19 sphere2 cells; bin_points card = CPU; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {name: {**e, "max_abs_err": 0.0} for name, e in entries.items()}, launches
+
+
 def write_cli_case(d: Path, n=NX, length=1e-3 * NX, model="kEqn", adjust=False):
     """The channel case directory of the CLI slice (ASCII OpenFOAM
     dictionaries): one hex block, cyclic x/y patches, no-slip z walls with
@@ -963,6 +1059,7 @@ def launch_counters():
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
     from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, rolls
+    from yade_openfoam_coupling_tpu_torch.native import bindings as nb
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin
     lap = fused_stencil.laplacian_facegamma_fused
     return {"window_exchange": (cw.window_exchange_padded, "launches"),
@@ -972,7 +1069,9 @@ def launch_counters():
             "rolls_deposit": (rolls.distribute_rolls, "launches"),
             "laplacian": (lap, "launches"),
             "laplacian_bf16": (lap, "launches_bf16"),
-            "dynwin_staging": (proto_dynwin.stage_planes, "launches")}
+            "dynwin_staging": (proto_dynwin.stage_planes, "launches"),
+            "meshtree_nearest": (nb.tree_nearest, "launches"),
+            "meshtree_range": (nb.tree_range, "launches")}
 
 
 def reset_launches():
@@ -1874,7 +1973,8 @@ def main() -> int:
           f"{kern['dynwin_staging']['library_device_ms']:.4f} ms [{smi}]", flush=True)
 
     # each path's launches, counted from 0 just before it and read just after
-    launches = {}
+    entries, launches = native_phase(device, smi)
+    kern.update(entries)
     runs, _ = slice_phase(cfg, device, smi, "window slice", ["window_exchange"])
     launches["window_exchange"] = runs["window_exchange"]
     runs, _ = slice_phase(pcfg, device, smi, "planes slice", ["planes_fused"])
@@ -2033,7 +2133,10 @@ def main() -> int:
                "laplacian_sharded": ("laplacian.cu", JAX_OPS + "pallas_stencil.py:37"),
                "planes_fused_256": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
                "window_exchange_256": ("window_exchange.cu",
-                                       JAX_OPS + "coupling_window.py:162")}
+                                       JAX_OPS + "coupling_window.py:162"),
+               # no Pallas kernel: the JAX package's host C++ queries
+               "meshtree_nearest": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),
+               "meshtree_range": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:160")}
     entries = []
     for name, e in kern.items():
         src, replaces = sources[name]

@@ -30,6 +30,7 @@ from yade_openfoam_coupling_tpu_torch.ops.stencil import (
     face_interp_all_padded,
     laplacian_facegamma_padded,
 )
+from yade_openfoam_coupling_tpu_torch.native import bindings as nb
 from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
 GRID = Grid.box((12, 10, 14), (0.012, 0.010, 0.014))
@@ -1003,3 +1004,78 @@ def test_window_bins_slab_mode_matches_cpu(cuda, x_start, wrap):
                  "n_overflow"):
         assert torch.equal(getattr(out["cuda"], name).cpu(), getattr(out["cpu"], name)), name
     assert int(out["cpu"].counts.sum()) > 0
+
+
+def _centres(n, h):
+    c = (np.arange(n) + 0.5) * h
+    return np.stack(np.meshgrid(c, c, c, indexing="ij"), -1).reshape(-1, 3)
+
+
+def _tree_case(name):
+    """(points, queries, radius, caps) of a tree case: the random clouds of
+    tests/test_native.py, the 8^3 dyadic centres queried on every face,
+    edge and corner (ties), and a 64^3 cloud of centres with 20,000
+    queries."""
+    if name == "random500":
+        rng = np.random.RandomState(0)
+        return rng.rand(500, 3), rng.rand(64, 3), 0.2, (300, 5)
+    if name == "random300":
+        rng = np.random.RandomState(1)
+        return rng.rand(300, 3), rng.rand(16, 3), 0.2, (300, 3)
+    if name == "ties8":
+        c = np.arange(17) * 0.125
+        q = np.stack(np.meshgrid(c, c, c, indexing="ij"), -1).reshape(-1, 3)
+        return _centres(8, 0.25), q, 0.375, (64, 7)
+    rng = np.random.RandomState(7)
+    return _centres(64, 1.0 / 64), rng.rand(20_000, 3), 1.5 / 64, (64, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random500", "random300", "ties8", "grid64"])
+def test_meshtree_kernels_match_the_host_library(cuda, name):
+    """Both tree kernels against the host library on the same tree, bit for
+    bit: nearest's idx and d2, range's counts and members in their order,
+    at a cap above and one below the hit count. One launch a query call."""
+    pts, q, r, caps = _tree_case(name)
+    host, card = nb.MeshTree(pts, device="cpu"), nb.MeshTree(pts, device=cuda)
+    for a, b in zip((card.pts, card.order, card.axes), (host.pts, host.order, host.axes)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    n0, r0 = nb.tree_nearest.launches, nb.tree_range.launches
+    idx, d2 = card.nearest(torch.as_tensor(q, device=cuda))
+    torch.cuda.synchronize()
+    hidx, hd2 = host.nearest(q)
+    assert idx.device.type == "cuda" and idx.dtype == torch.int32 and d2.dtype == torch.float64
+    assert torch.equal(idx.cpu(), hidx) and torch.equal(d2.cpu(), hd2)
+    for cap in caps:
+        got, hit = card.range_query(q, r, cap=cap), host.range_query(q, r, cap=cap)
+        assert torch.equal(got[0].cpu(), hit[0]) and torch.equal(got[1].cpu(), hit[1])
+    assert int(hit[1].max()) == caps[-1]        # the last cap is below some hit count
+    assert (nb.tree_nearest.launches - n0, nb.tree_range.launches - r0) == (1, len(caps))
+
+
+@pytest.mark.cuda
+def test_meshtree_kernels_edge_cases(cuda):
+    """No query launches nothing; one point; a cap of 0; queries far out."""
+    n0 = nb.tree_nearest.launches
+    tree = nb.MeshTree(np.array([[0.5, 0.5, 0.5]]), device=cuda)
+    idx, d2 = tree.nearest(np.zeros((0, 3)))
+    assert idx.shape == (0,) and nb.tree_nearest.launches == n0
+    q = np.array([[0.5, 0.5, 0.5], [1e9, -1e9, 3.0]])
+    idx, d2 = tree.nearest(q)
+    assert idx.tolist() == [0, 0] and torch.equal(d2.cpu(), nb.MeshTree(
+        np.array([[0.5, 0.5, 0.5]]), device="cpu").nearest(q)[1])
+    idx, n = tree.range_query(q, 1.0, cap=0)
+    assert idx.shape == (2, 0) and n.tolist() == [0, 0]
+    idx, n = tree.range_query(q, 1.0, cap=4)
+    assert n.tolist() == [1, 0] and idx.cpu().tolist() == [[0, -1, -1, -1], [-1] * 4]
+
+
+@pytest.mark.cuda
+def test_bin_points_on_the_card_matches_cpu(cuda):
+    rng = np.random.RandomState(8)
+    pts = np.concatenate([rng.rand(5000, 3) * 1.2 - 0.1, [[1.0, 0.5, 0.5], [1e12, 0, 0],
+                                                          [0, -1e12, 0]]])
+    args = ((0.0, 0.0, 0.0), (1 / 16, 1 / 8, 1 / 32), (16, 8, 32))
+    for got, ref in zip(nb.bin_points(pts, *args, device=cuda),
+                        nb.bin_points(pts, *args, device="cpu")):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), ref)

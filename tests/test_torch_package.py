@@ -89,7 +89,7 @@ def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor the JAX
     package (checked in a fresh interpreter), the front door's modules, the
     copied foamdict/foammesh, the obstacles, the B7 script, the bench and
-    the bench and profile scripts included."""
+    the bench and profile scripts, and the k-d tree locator included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import yade_openfoam_coupling_tpu_torch as p\n"
@@ -110,7 +110,8 @@ def test_port_imports_no_jax():
                  "utils.logging", "models.runner", "cli", "cases.builders", "ops.rolls",
                  "ops.fused_stencil", "ops.obstacle", "models.piso",
                  "scripts.proto_dynwin", "bench", "scripts.bench_1m", "scripts.bench_ladder",
-                 "scripts.profile_1m", "scripts.bench_sharded1", "scripts.profile_sharded1"):
+                 "scripts.profile_1m", "scripts.bench_sharded1", "scripts.profile_sharded1",
+                 "native.bindings", "scripts.meshtree_timing"):
         assert f"yade_openfoam_coupling_tpu_torch.{name}" in mods, name
 
 

@@ -4,6 +4,8 @@ handling. Each pad of a rank's slab must equal the single-device pad of
 the global field over that slab, bit for bit, ghosts included (the JAX
 package's `test_halo_pad_matches_bc_pad`, at 2 and 4 ranks)."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -126,3 +128,10 @@ def test_failing_rank_stops_the_launch_with_its_traceback():
 def test_hung_rank_stops_the_launch_at_its_deadline():
     with pytest.raises(RankFailed, match=r"still running|exited"):
         launch(hang_on_rank_one, 2, "gloo", "cpu", timeout=10, deadline=15)
+
+
+def test_launch_defaults_to_the_card():
+    """Like `make_mesh`, `launch` puts its ranks on the cards over NCCL unless
+    the caller asks for gloo on the CPU, as every test here does."""
+    params = inspect.signature(launch).parameters
+    assert (params["backend"].default, params["device"].default) == ("nccl", "cuda")

@@ -12,7 +12,9 @@ exchanges (`coupling_window._window_kernel`, `coupling_planes._fused_kernel`,
 (`pallas_stencil._lap_kernel`) are CUDA kernels written by hand for Hopper
 (`csrc/window_exchange.cu`, `csrc/planes_exchange.cu`, sharing
 `csrc/exchange_common.cuh`; `csrc/rolls_deposit.cu`; `csrc/laplacian.cu`),
-built at first use into `_build/`. `python -m yade_openfoam_coupling_tpu_torch
+built at first use into `_build/`. The k-d tree cell locator (`native/`)
+builds its tree with a host library of its own and queries it on the card
+with the kernels of `csrc/meshtree.cu`. `python -m yade_openfoam_coupling_tpu_torch
 pimplefoam <case>` is the command-line front door (`cli.py`).
 """
 

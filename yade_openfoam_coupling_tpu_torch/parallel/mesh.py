@@ -111,16 +111,17 @@ class RankFailed(RuntimeError):
     """A rank of a launch exited non-zero or outlived the deadline."""
 
 
-def launch(fn: Callable, n_ranks: int, backend: str = "gloo", device: str = "cpu",
+def launch(fn: Callable, n_ranks: int, backend: str = "nccl", device: str = "cuda",
            args: Sequence = (), *, timeout: float = 120.0,
            deadline: Optional[float] = None) -> list:
     """Run ``fn(mesh, *args)`` on ``n_ranks`` spawned processes and return
     their results, by rank (each must pickle: return numpy arrays or CPU
     tensors). ``fn`` must be importable by name in a child process.
 
-    ``backend`` is the process group's ("gloo" or "nccl"); ``device`` each
-    rank's device: "cpu", "cuda" (rank r on card r modulo the card count)
-    or one card for every rank ("cuda:0"). Collectives wait at most
+    ``backend`` is the process group's ("nccl", the default, or "gloo");
+    ``device`` each rank's device: "cuda" (the default: rank r on card r
+    modulo the card count), one card for every rank ("cuda:0") or "cpu"
+    (with gloo). Collectives wait at most
     ``timeout`` seconds; the whole launch at most ``deadline`` seconds
     (2 x timeout + 60 by default). A rank that exits non-zero stops the
     others at once, and `RankFailed` carries its traceback; so does a
