@@ -1040,6 +1040,7 @@ def test_meshtree_kernels_match_the_host_library(cuda, name):
     host, card = nb.MeshTree(pts, device="cpu"), nb.MeshTree(pts, device=cuda)
     for a, b in zip((card.pts, card.order, card.axes), (host.pts, host.order, host.axes)):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert card._handle is None         # the host tree is freed once uploaded
     n0, r0 = nb.tree_nearest.launches, nb.tree_range.launches
     idx, d2 = card.nearest(torch.as_tensor(q, device=cuda))
     torch.cuda.synchronize()

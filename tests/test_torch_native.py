@@ -165,16 +165,33 @@ def test_queries_take_tensors_and_arrays_and_launch_nothing_on_the_cpu():
     assert (tnb.tree_nearest.launches, tnb.tree_range.launches) == before
 
 
-def test_visit_counts():
-    rng = np.random.RandomState(6)
-    pts, q = rng.rand(1000, 3), rng.rand(50, 3)
-    tree = MeshTree(pts, device="cpu")
-    v = tree.count_visits(q)
-    vr = tree.count_visits(q, radius=0.1, cap=64)
-    depth = int(np.floor(np.log2(1000))) + 1
-    assert v.dtype == np.int64 and (v >= depth - 1).all() and (v < 1000).all()
-    assert (vr >= 1).all() and (vr <= 1000).all()
-    assert MeshTree(pts[:1], device="cpu").count_visits(q).tolist() == [1] * 50
+def test_timing_bound_reads_the_tree_once():
+    """meshtree_timing's bound: the tree's 29 bytes a point and each query's
+    24 bytes in and its results out, once, or the answers' distances when
+    they take longer."""
+    from yade_openfoam_coupling_tpu_torch.scripts import meshtree_timing as mt
+    tree = MeshTree(np.random.RandomState(6).rand(1000, 3), device="cpu")
+    b = mt.bound(tree, 50, 12, 50)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx((1000 * 29 + 50 * 36) / mt.HBM_BYTES_PER_S * 1e3)
+    b = mt.bound(tree, 50, 12, 10 ** 9)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(8e9 / mt.F64_FLOPS * 1e3)
+
+
+def test_compile_shared_raises_with_the_compilers_output(tmp_path):
+    """The build helper that names the host library and the CUDA libraries
+    alike: a failed compile raises with the compiler's report, leaves no
+    library and no temporary file behind."""
+    import shutil
+    from yade_openfoam_coupling_tpu_torch import kernels
+    src = tmp_path / "broken.cpp"
+    src.write_text("int f( { return 0; }\n")
+    out = tmp_path / "libbroken.so"
+    before = set(kernels.BUILD.iterdir())
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed.*broken.cpp"):
+        kernels.compile_shared({out: [shutil.which("g++"), *tnb.CXX_FLAGS, str(src)]})
+    assert not out.exists() and set(kernels.BUILD.iterdir()) == before
 
 
 def test_bin_points_csr_matches_jax():

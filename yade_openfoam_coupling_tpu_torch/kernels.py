@@ -54,18 +54,54 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
-        h.update(str(f.relative_to(CSRC)).encode())
+def source_digest(flags, files, root: Path) -> str:
+    """16 hex digits of a hash of the compiler flags and of each file's path
+    (relative to ``root``) and bytes: a library named by it is rebuilt when
+    a flag or a source changes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
+        h.update(str(f.relative_to(root)).encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
+
+
+def compile_shared(jobs: Dict[Path, list]) -> None:
+    """Run each compiler command (all but its ``-o``) whose library does not
+    exist yet, all started together, each into a temporary file in
+    ``_build/`` that then replaces its library at once (a concurrent build
+    never sees half a file); the compiler's report is kept beside the
+    library with the suffix .log. Raise with every failed command's
+    output."""
+    todo = {out: cmd for out, cmd in jobs.items() if not out.exists()}
+    if not todo:
+        return
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for out, cmd in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        cmd = [*cmd, "-o", tmp]
+        procs[out] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for out, (cmd, tmp, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{Path(cmd[0]).name} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                          f"{report}")
+            continue
+        out.with_suffix(".log").write_text(report)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` for the current sources
     lives (built or not)."""
-    return BUILD / f"lib{name}_{_digest()}.so"
+    files = sorted(p for p in CSRC.rglob("*") if p.is_file())
+    return BUILD / f"lib{name}_{source_digest(NVCC_FLAGS, files, CSRC)}.so"
 
 
 def build() -> Dict[str, Path]:
@@ -74,30 +110,10 @@ def build() -> Dict[str, Path]:
     paths by name. Each compiler report (registers, spills per kernel) is
     kept beside its library with the suffix .log."""
     outs = {name: library_path(name) for name in ENTRY_POINTS}
-    todo = {name: out for name, out in outs.items() if not out.exists()}
-    if not todo:
-        return outs
-    BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, out in todo.items():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (cmd, tmp, proc) in procs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{report}")
-            continue
-        out = todo[name]
-        out.with_suffix(".log").write_text(report)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    if not all(out.exists() for out in outs.values()):
+        nvcc = _nvcc()
+        compile_shared({out: [nvcc, *NVCC_FLAGS, str(CSRC / f"{name}.cu")]
+                        for name, out in outs.items()})
     return outs
 
 

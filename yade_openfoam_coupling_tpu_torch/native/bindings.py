@@ -20,11 +20,7 @@ calls it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
@@ -32,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import BUILD
+from ..kernels import BUILD, compile_shared, source_digest
 
 SOURCE = Path(__file__).resolve().parent / "meshtree.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
@@ -47,25 +43,7 @@ _P = ctypes.c_void_p
 def library_path() -> Path:
     """Where the host library for the current source and flags lives
     (built or not): its name carries a hash of both."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD / f"libmeshtree_host_{h.hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> None:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the k-d tree's host library needs a C++ compiler")
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return BUILD / f"libmeshtree_host_{source_digest(CXX_FLAGS, [SOURCE], SOURCE.parent)}.so"
 
 
 def _load() -> ctypes.CDLL:
@@ -75,7 +53,11 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _build(path)
+                cxx = shutil.which("g++")
+                if cxx is None:
+                    raise RuntimeError("g++ not found: the k-d tree's host library needs a "
+                                       "C++ compiler")
+                compile_shared({path: [cxx, *CXX_FLAGS, str(SOURCE)]})
             lib = ctypes.CDLL(str(path))
             lib.yofc_tree_build.restype = _P
             lib.yofc_tree_build.argtypes = [_P, ctypes.c_int32]
@@ -83,9 +65,9 @@ def _load() -> ctypes.CDLL:
             lib.yofc_tree_size.restype = ctypes.c_int32
             lib.yofc_tree_size.argtypes = [_P]
             lib.yofc_tree_export.argtypes = [_P] * 4
-            lib.yofc_tree_nearest.argtypes = [_P, _P, ctypes.c_int32, _P, _P, _P]
+            lib.yofc_tree_nearest.argtypes = [_P, _P, ctypes.c_int32, _P, _P]
             lib.yofc_tree_range.argtypes = [_P, _P, ctypes.c_int32, ctypes.c_double,
-                                            ctypes.c_int32, _P, _P, _P]
+                                            ctypes.c_int32, _P, _P]
             _lib = lib
     return _lib
 
@@ -99,8 +81,8 @@ def available() -> bool:
     return True
 
 
-def _ptr(a: Optional[np.ndarray]):
-    return None if a is None else a.ctypes.data
+def _ptr(a: np.ndarray):
+    return a.ctypes.data
 
 
 def _host_f64(x) -> np.ndarray:
@@ -114,7 +96,8 @@ class MeshTree:
 
     ``points`` (n, 3) is a tensor or a numpy array; ``device`` the device
     of the tree's arrays (``pts`` (n, 3) f64, ``order`` (n,) i32, ``axes``
-    (n,) i8), of its queries and of their results."""
+    (n,) i8), of its queries and of their results. A CPU tree keeps the host
+    library's tree for its queries; a CUDA tree frees it once uploaded."""
 
     def __init__(self, points, device="cuda"):
         self.device = torch.device(device)
@@ -130,9 +113,11 @@ class MeshTree:
         axes = np.empty(self.n, np.int8)
         pts = np.empty((self.n, 3), np.float64)
         self._lib.yofc_tree_export(self._handle, _ptr(pts), _ptr(order), _ptr(axes))
-        # uploaded once; the CPU route reads the host library's own copy
         self.pts, self.order, self.axes = (torch.from_numpy(a).to(self.device)
                                            for a in (pts, order, axes))
+        if self.device.type == "cuda":      # the kernels walk the uploaded arrays alone
+            self._lib.yofc_tree_free(self._handle)
+            self._handle = None
 
     def __del__(self):
         if getattr(self, "_handle", None):
@@ -152,32 +137,18 @@ class MeshTree:
         traversal order: (idx (nq, cap) i32 padded with -1, n (nq,) i32)."""
         return tree_range(self, self._queries(queries), float(radius), int(cap))
 
-    def _host_nearest(self, q: np.ndarray, visits: Optional[np.ndarray] = None):
+    def _host_nearest(self, q: np.ndarray):
         idx = np.empty(q.shape[0], np.int32)
         d2 = np.empty(q.shape[0], np.float64)
-        self._lib.yofc_tree_nearest(self._handle, _ptr(q), q.shape[0], _ptr(idx), _ptr(d2),
-                                    _ptr(visits))
+        self._lib.yofc_tree_nearest(self._handle, _ptr(q), q.shape[0], _ptr(idx), _ptr(d2))
         return idx, d2
 
-    def _host_range(self, q: np.ndarray, radius: float, cap: int,
-                    visits: Optional[np.ndarray] = None):
+    def _host_range(self, q: np.ndarray, radius: float, cap: int):
         idx = np.empty((q.shape[0], cap), np.int32)
         n = np.empty(q.shape[0], np.int32)
         self._lib.yofc_tree_range(self._handle, _ptr(q), q.shape[0], radius, cap, _ptr(idx),
-                                  _ptr(n), _ptr(visits))
+                                  _ptr(n))
         return idx, n
-
-    def count_visits(self, queries, radius: Optional[float] = None, cap: int = 64) -> np.ndarray:
-        """Nodes whose distance each query takes, counted by the host
-        library: of `nearest`, or of `range_query` when ``radius`` is
-        given. -> (nq,) int64."""
-        q = _host_f64(queries)
-        visits = np.empty(q.shape[0], np.int64)
-        if radius is None:
-            self._host_nearest(q, visits)
-        else:
-            self._host_range(q, float(radius), int(cap), visits)
-        return visits
 
 
 def _check_queries(nq: int) -> None:

@@ -12,11 +12,9 @@
 // pop/push order, so the two routes return the same ties and the same
 // members of a capped range query.
 //
-// Differences from the JAX copy: the queries take an optional per-query
-// visit count (`out_visits`, null from the public API; the card's bound
-// is written from it), `yofc_tree_size`/`yofc_tree_export` hand out the
-// tree's arrays, and there is no binner (the port bins with torch ops,
-// `bindings.bin_points`).
+// Differences from the JAX copy: `yofc_tree_size`/`yofc_tree_export` hand
+// out the tree's arrays, and there is no binner (the port bins with torch
+// ops, `bindings.bin_points`).
 //
 // Build (done by bindings.py at first use, into the package's _build/):
 //   g++ -O3 -std=c++17 -fPIC -shared -ffp-contract=off meshtree.cpp
@@ -127,17 +125,15 @@ void yofc_tree_export(void* handle, double* pts, int32_t* order, int8_t* axes) {
   std::memcpy(axes, tr.axes.data(), tr.axes.size() * sizeof(int8_t));
 }
 
-// nearest neighbour of each query point; out: (nq,) indices. out_d2 and
-// out_visits (nodes whose distance was taken) may be null.
+// nearest neighbour of each query point; out: (nq,) indices.
 void yofc_tree_nearest(void* handle, const double* queries, int32_t nq,
-                       int32_t* out_idx, double* out_d2, int64_t* out_visits) {
+                       int32_t* out_idx, double* out_d2) {
   const Tree& tr = *static_cast<Tree*>(handle);
   const KDTree& t = tr.kd;
   for (int32_t qi = 0; qi < nq; ++qi) {
     const double* q = queries + 3 * static_cast<size_t>(qi);
     int32_t best = -1;
     double bestd = 1e300;
-    int64_t visits = 0;
     std::vector<Span> stack{{0, t.n, 0}};
     while (!stack.empty()) {
       Span s = stack.back();
@@ -146,7 +142,6 @@ void yofc_tree_nearest(void* handle, const double* queries, int32_t nq,
       int32_t mid = (s.lo + s.hi) / 2;
       int32_t idx = t.order[mid];
       double d = dist2(t, idx, q);
-      ++visits;
       if (d < bestd) {
         bestd = d;
         best = idx;
@@ -163,23 +158,20 @@ void yofc_tree_nearest(void* handle, const double* queries, int32_t nq,
     }
     out_idx[qi] = best;
     if (out_d2) out_d2[qi] = bestd;
-    if (out_visits) out_visits[qi] = visits;
   }
 }
 
 // all points within radius r of each query, capped at `cap` per query in
 // traversal order (nearest-first NOT guaranteed). out_idx: (nq, cap)
-// filled with -1 padding; counts in out_n; out_visits may be null.
+// filled with -1 padding; returns counts in out_n.
 void yofc_tree_range(void* handle, const double* queries, int32_t nq,
-                     double r, int32_t cap, int32_t* out_idx, int32_t* out_n,
-                     int64_t* out_visits) {
+                     double r, int32_t cap, int32_t* out_idx, int32_t* out_n) {
   const Tree& tr = *static_cast<Tree*>(handle);
   const KDTree& t = tr.kd;
   const double r2 = r * r;
   for (int32_t qi = 0; qi < nq; ++qi) {
     const double* q = queries + 3 * static_cast<size_t>(qi);
     int32_t count = 0;
-    int64_t visits = 0;
     int32_t* row = out_idx + static_cast<size_t>(qi) * cap;
     for (int32_t c = 0; c < cap; ++c) row[c] = -1;
     std::vector<Span> stack{{0, t.n, 0}};
@@ -189,7 +181,6 @@ void yofc_tree_range(void* handle, const double* queries, int32_t nq,
       if (s.lo >= s.hi) continue;
       int32_t mid = (s.lo + s.hi) / 2;
       int32_t idx = t.order[mid];
-      ++visits;
       if (dist2(t, idx, q) <= r2) row[count++] = idx;
       if (s.hi - s.lo == 1) continue;
       int axis = tr.axes[mid];
@@ -201,7 +192,6 @@ void yofc_tree_range(void* handle, const double* queries, int32_t nq,
         stack.push_back({static_cast<int32_t>(mid + 1), s.hi, 0});
     }
     out_n[qi] = count;
-    if (out_visits) out_visits[qi] = visits;
   }
 }
 

@@ -9,8 +9,7 @@ nearest point), where it finds the 19 cells of the `sphere2` stencil.
 For each it prints one JSON line: the median
 milliseconds of a call with the host's work in the wrapper (`ms`) and of
 the card alone (`device_ms`), the host library's single-thread time for
-the same queries (`plain_ms`), the mean nodes a query visits (counted by
-the host library) and the bound from them; then one line with the host
+the same queries (`plain_ms`) and the bound; then one line with the host
 tree build's seconds and the card tree's (host build and upload). The
 card's answers are held to the host library's bit for bit first.
 
@@ -30,8 +29,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F64_FLOPS = 34e12             # H100 SXM float64 outside the tensor cores (data sheet)
-VISIT_BYTES = 96              # a visit's three 32-byte sectors: order, axes and pts
-VISIT_FLOPS = 11              # dist2's 3 differences, 3 products, 3 sums; delta and delta^2
+DIST2_FLOPS = 8               # dist2's 3 differences, 3 products and 2 sums
 H = 1e-3                      # bench.py's spacing
 RADIUS_CELLS, CAP = 1.5, 64   # the range query's radius in cells, and its cap
 
@@ -48,51 +46,41 @@ def particle_queries(n: int, nx: int, h: float = H) -> np.ndarray:
     return lattice_positions(n, nx * h).astype(np.float32).astype(np.float64)
 
 
-def visit_bound(visits: np.ndarray) -> dict:
-    """The least time for the queries' tree walks: every visit's 96 bytes at
-    the HBM rate, or its float64 operations at the peak rate, whichever is
-    longer (the bytes, by far)."""
-    v = float(visits.sum())
-    t_bytes = v * VISIT_BYTES / HBM_BYTES_PER_S * 1e3
-    t_ops = v * VISIT_FLOPS / F64_FLOPS * 1e3
+def bound(tree, nq: int, out_bytes_per_query: int, n_dist2: int) -> dict:
+    """The least time of a query call: the tree's arrays (pts, order, axes)
+    and the queries read once and the results written once at the HBM
+    rate, or the float64 operations of the ``n_dist2`` distances that the
+    answers need (one a query for `nearest`, one a member found for
+    `range_query`) at the peak rate, whichever is longer (the bytes)."""
+    t_bytes = (tree.n * (24 + 4 + 1) + nq * (24 + out_bytes_per_query)) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_dist2 * DIST2_FLOPS / F64_FLOPS * 1e3
     return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
             else {"bound_ms": t_ops, "bound_by": "operations"})
-
-
-def tree_bytes_once(tree, nq: int, out_bytes_per_query: int) -> float:
-    """ms to read the whole tree's arrays and the queries once and write the
-    results once at the HBM rate: a floor below the visit bound, which
-    counts a node again for every query that visits it."""
-    n_bytes = tree.n * (24 + 4 + 1) + nq * (24 + out_bytes_per_query)
-    return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def time_queries(card, host, q: np.ndarray, qc: np.ndarray, radius: float,
                  reps: int = 10) -> dict:
     """Times of both kernels on the card tree (`nearest` at q, `range_query`
     at qc) and of the host library's same queries on the host tree (one
-    call each), with the visit bound. -> {"meshtree_nearest": {...},
+    call each), with the bound. -> {"meshtree_nearest": {...},
     "meshtree_range": {...}}."""
     import torch
     from .exchange_timing import cuda_ms
 
     qd, qcd = (torch.as_tensor(a, device=card.device) for a in (q, qc))
-    calls = {"meshtree_nearest": (lambda: card.nearest(qd), lambda: host.nearest(q),
-                                  lambda: host.count_visits(q), 12),
+    calls = {"meshtree_nearest": (lambda: card.nearest(qd), lambda: host.nearest(q), 12),
              "meshtree_range": (lambda: card.range_query(qcd, radius, CAP),
-                                lambda: host.range_query(qc, radius, CAP),
-                                lambda: host.count_visits(qc, radius, CAP), 4 * CAP + 4)}
+                                lambda: host.range_query(qc, radius, CAP), 4 * CAP + 4)}
     out = {}
-    for name, (kernel, plain, count, out_bytes) in calls.items():
-        visits = count()
+    for name, (kernel, plain, out_bytes) in calls.items():
         t0 = time.perf_counter()
-        plain()
+        res = plain()
         plain_ms = 1e3 * (time.perf_counter() - t0)
+        n_dist2 = len(q) if name == "meshtree_nearest" else int(res[1].sum())
         out[name] = {"ms": cuda_ms(kernel, reps), "device_ms": cuda_ms(kernel, reps,
                                                                        device_only=True),
-                     "plain_ms": plain_ms, **visit_bound(visits),
-                     "bound_once_ms": tree_bytes_once(card, len(q), out_bytes),
-                     "library_ms": None, "mean_visits": float(visits.mean())}
+                     "plain_ms": plain_ms, **bound(card, len(q), out_bytes, n_dist2),
+                     "library_ms": None}
     return out
 
 
