@@ -28,8 +28,9 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
   * the k-d tree locator (`native/`): a tree over the 128^3 grid's
     2,097,152 cell centres uploaded to the card, `nearest` at the 100k
     particles, `range_query` at r = 1.5h from each particle's cell centre
-    (the 19 `sphere2` cells) and `bin_points`; both tree kernels bit for
-    bit against the host library, `nearest` against `locate`;
+    (the 19 `sphere2` cells) and `bin_points`, each query call ordered by
+    the keys kernel; both tree kernels bit for bit against the host
+    library in lattice order and on a shuffle, `nearest` against `locate`;
   * the planes slice's CLI with more than 8 slots a cell: `pimplefoam
     --fast --slot-capacity 9 <case>`, a few steps;
   * the `--yade-physics` slice: bench.py's configuration with the
@@ -741,13 +742,16 @@ def native_phase(device, card):
     (`scripts/meshtree_timing.py`'s case). The path, its launch counts from
     0 just before and read just after: the card tree's host build and
     upload, `nearest` at the particles, `range_query` at r = 1.5h from each
-    particle's cell centre, `bin_points` of the particles. Then both
-    kernels bit for bit against the host library (idx, d2, counts and
-    members, also of a range capped at 8 of its 19 hits); nearest's cell
+    particle's cell centre (each call orders its queries by the keys
+    kernel), `bin_points` of the particles. Then both kernels bit for bit
+    against the host library (idx, d2, counts and members, also of a range
+    capped at 8 of its 19 hits), in lattice order and on a seeded shuffle
+    of the particles (compared through the permutation), and the keys
+    kernel against its plain version; nearest's cell
     against `ops.coupling.locate` (float32) for every particle farther than
     1e-4 h from a face; the 19 `sphere2` cells of every range in the
-    interior; `bin_points` on the card against the CPU. -> (kernel
-    entries, launches)."""
+    interior; `bin_points` on the card against the CPU. Both kernels are
+    timed in both orders. -> (kernel entries, launches)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.native import bindings as nb
     from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
@@ -790,6 +794,16 @@ def native_phase(device, card):
                                  f"library (error {errs[name]})")
     if not bool((checks["range, cap 8"][1][1] == 8).all()):
         raise AssertionError("native path: a range capped at 8 kept fewer than 8 cells")
+    perm = mt.shuffle(N_PARTICLES)
+    pd = torch.as_tensor(perm, device=device)
+    shuffled = {"nearest": (tree.nearest(qd[pd]), checks["nearest"][1]),
+                "range": (tree.range_query(qc[pd], radius, mt.CAP), checks["range"][1]),
+                "range, cap 8": (tree.range_query(qc[pd], radius, 8),
+                                 checks["range, cap 8"][1])}
+    for name, (got, ref) in shuffled.items():
+        if not all(torch.equal(a.cpu(), b[perm]) for a, b in zip(got, ref)):
+            raise AssertionError(f"native path: {name} on the card, shuffled, differs from the "
+                                 "host library")
 
     cell, inside = cp.locate(torch.as_tensor(q, dtype=torch.float32, device=device), grid)
     flat = (cell[:, 0].long() * ny + cell[:, 1]) * nz + cell[:, 2]
@@ -816,11 +830,26 @@ def native_phase(device, card):
             raise AssertionError("native path: bin_points on the card differs from the CPU")
 
     entries = mt.time_queries(tree, host, q, qc_h, radius)
+    shuffled = mt.time_queries(tree, host, q[perm], qc_h[perm], radius)
     for name, e in entries.items():
+        s = shuffled[name]
         print(f"kernel {name} ({NX}^3 centres, {N_PARTICLES} queries): bit for bit with the "
-              f"host library; {e['ms']:.4f} ms ({e['device_ms']:.4f} ms device only), host "
-              f"library {e['plain_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-              f"device share of bound {e['bound_ms'] / e['device_ms']:.3f} [{card}]", flush=True)
+              f"host library in lattice and shuffled order; lattice {e['ms']:.4f} ms "
+              f"({e['device_ms']:.4f} ms device only, share of bound "
+              f"{e['bound_ms'] / e['device_ms']:.4f}), shuffled {s['ms']:.4f} ms "
+              f"({s['device_ms']:.4f} ms device only, share {s['bound_ms'] / s['device_ms']:.4f}); "
+              f"host library {e['plain_ms']:.3f} / {s['plain_ms']:.3f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), peak {e['peak_mb']:.1f} MB of which "
+              f"{e['peak_rise_mb']:.1f} MB in the call [{card}]", flush=True)
+        e.update(ms_shuffled=s["ms"], device_ms_shuffled=s["device_ms"])
+    entries["meshtree_keys"] = mt.time_keys(tree, q)
+    e = entries["meshtree_keys"]
+    if e["max_abs_err"] != 0:
+        raise AssertionError(f"native path: the keys kernel differs from its plain version in "
+                             f"{e['max_abs_err']:.0f} keys")
+    print(f"kernel meshtree_keys ({N_PARTICLES} queries): equal to its plain version; "
+          f"{e['ms']:.4f} ms ({e['device_ms']:.4f} ms device only), plain {e['plain_ms']:.4f} "
+          f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}) [{card}]", flush=True)
     print(f"native path: {launches} on the path ({path_s:.3f} s with the card tree's host "
           f"build and upload); host tree build {build_s:.3f} s; nearest = locate for "
           f"{int(far.sum())} of {N_PARTICLES} particles (the rest within 1e-4 h of a face); "
@@ -1076,6 +1105,7 @@ def launch_counters():
             "laplacian": (lap, "launches"),
             "laplacian_bf16": (lap, "launches_bf16"),
             "dynwin_staging": (proto_dynwin.stage_planes, "launches"),
+            "meshtree_keys": (nb.morton_keys, "launches"),
             "meshtree_nearest": (nb.tree_nearest, "launches"),
             "meshtree_range": (nb.tree_range, "launches")}
 
@@ -2141,6 +2171,7 @@ def main() -> int:
                "window_exchange_256": ("window_exchange.cu",
                                        JAX_OPS + "coupling_window.py:162"),
                # no Pallas kernel: the JAX package's host C++ queries
+               "meshtree_keys": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),
                "meshtree_nearest": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),
                "meshtree_range": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:160")}
     entries = []

@@ -1014,8 +1014,10 @@ def _centres(n, h):
 def _tree_case(name):
     """(points, queries, radius, caps) of a tree case: the random clouds of
     tests/test_native.py, the 8^3 dyadic centres queried on every face,
-    edge and corner (ties), and a 64^3 cloud of centres with 20,000
-    queries."""
+    edge and corner (ties), a 64^3 cloud of centres with 20,000 random
+    queries, and the 128^3 centres with 20,000 particles of the bench
+    lattice. A cap of 128 or 300 passes the range kernel's shared-memory
+    buffer (cap <= 64); the last cap is below some query's hit count."""
     if name == "random500":
         rng = np.random.RandomState(0)
         return rng.rand(500, 3), rng.rand(64, 3), 0.2, (300, 5)
@@ -1026,41 +1028,56 @@ def _tree_case(name):
         c = np.arange(17) * 0.125
         q = np.stack(np.meshgrid(c, c, c, indexing="ij"), -1).reshape(-1, 3)
         return _centres(8, 0.25), q, 0.375, (64, 7)
+    if name == "grid128":
+        from yade_openfoam_coupling_tpu_torch.scripts import meshtree_timing as mt
+        return (_centres(128, 1.0 / 128), mt.particle_queries(20_000, 128, 1.0 / 128),
+                1.5 / 128, (64, 9))
     rng = np.random.RandomState(7)
-    return _centres(64, 1.0 / 64), rng.rand(20_000, 3), 1.5 / 64, (64, 9)
+    return _centres(64, 1.0 / 64), rng.rand(20_000, 3), 1.5 / 64, (64, 128, 9)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["random500", "random300", "ties8", "grid64"])
-def test_meshtree_kernels_match_the_host_library(cuda, name):
+@pytest.mark.parametrize("name", ["random500", "random300", "ties8", "grid64", "grid128"])
+@pytest.mark.parametrize("order", ["lattice", "shuffled"])
+def test_meshtree_kernels_match_the_host_library(cuda, name, order):
     """Both tree kernels against the host library on the same tree, bit for
     bit: nearest's idx and d2, range's counts and members in their order,
-    at a cap above and one below the hit count. One launch a query call."""
+    at a cap above and one below the hit count; the queries as the case
+    gives them, or in a seeded shuffle, compared through the permutation.
+    One launch of each wrapper a query call, one of the keys kernel."""
     pts, q, r, caps = _tree_case(name)
     host, card = nb.MeshTree(pts, device="cpu"), nb.MeshTree(pts, device=cuda)
     for a, b in zip((card.pts, card.order, card.axes), (host.pts, host.order, host.axes)):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert torch.equal(card.nodes.cpu(), nb.node_records(host.pts, host.order, host.axes))
+    np.testing.assert_array_equal(card.box, nb.morton_box(pts))
     assert card._handle is None         # the host tree is freed once uploaded
-    n0, r0 = nb.tree_nearest.launches, nb.tree_range.launches
-    idx, d2 = card.nearest(torch.as_tensor(q, device=cuda))
+    p = np.random.RandomState(12).permutation(len(q)) if order == "shuffled" else np.arange(len(q))
+    n0, r0, k0 = nb.tree_nearest.launches, nb.tree_range.launches, nb.morton_keys.launches
+    idx, d2 = card.nearest(torch.as_tensor(q[p], device=cuda))
     torch.cuda.synchronize()
     hidx, hd2 = host.nearest(q)
     assert idx.device.type == "cuda" and idx.dtype == torch.int32 and d2.dtype == torch.float64
-    assert torch.equal(idx.cpu(), hidx) and torch.equal(d2.cpu(), hd2)
+    assert torch.equal(idx.cpu(), hidx[p]) and torch.equal(d2.cpu(), hd2[p])
     for cap in caps:
-        got, hit = card.range_query(q, r, cap=cap), host.range_query(q, r, cap=cap)
-        assert torch.equal(got[0].cpu(), hit[0]) and torch.equal(got[1].cpu(), hit[1])
+        got, hit = card.range_query(q[p], r, cap=cap), host.range_query(q, r, cap=cap)
+        assert torch.equal(got[0].cpu(), hit[0][p]) and torch.equal(got[1].cpu(), hit[1][p])
     assert int(hit[1].max()) == caps[-1]        # the last cap is below some hit count
-    assert (nb.tree_nearest.launches - n0, nb.tree_range.launches - r0) == (1, len(caps))
+    assert (nb.tree_nearest.launches - n0, nb.tree_range.launches - r0,
+            nb.morton_keys.launches - k0) == (1, len(caps), 1 + len(caps))
 
 
 @pytest.mark.cuda
 def test_meshtree_kernels_edge_cases(cuda):
-    """No query launches nothing; one point; a cap of 0; queries far out."""
+    """No query launches nothing; one point; a cap of 0; queries far out;
+    one query, and 129 (a block and one) at caps on either side of the
+    range kernel's shared-memory buffer."""
     n0 = nb.tree_nearest.launches
     tree = nb.MeshTree(np.array([[0.5, 0.5, 0.5]]), device=cuda)
     idx, d2 = tree.nearest(np.zeros((0, 3)))
     assert idx.shape == (0,) and nb.tree_nearest.launches == n0
+    idx, n = tree.range_query(np.zeros((0, 3)), 1.0, cap=4)
+    assert idx.shape == (0, 4) and n.shape == (0,)
     q = np.array([[0.5, 0.5, 0.5], [1e9, -1e9, 3.0]])
     idx, d2 = tree.nearest(q)
     assert idx.tolist() == [0, 0] and torch.equal(d2.cpu(), nb.MeshTree(
@@ -1069,6 +1086,41 @@ def test_meshtree_kernels_edge_cases(cuda):
     assert idx.shape == (2, 0) and n.tolist() == [0, 0]
     idx, n = tree.range_query(q, 1.0, cap=4)
     assert n.tolist() == [1, 0] and idx.cpu().tolist() == [[0, -1, -1, -1], [-1] * 4]
+    idx, d2 = tree.nearest(np.array([[0.2, 0.3, 0.4]]))
+    dd = [0.5 - c for c in (0.2, 0.3, 0.4)]
+    assert idx.tolist() == [0] and d2.tolist() == [((0.0 + dd[0] * dd[0]) + dd[1] * dd[1])
+                                                   + dd[2] * dd[2]]
+    rng = np.random.RandomState(13)
+    pts = rng.rand(300, 3)
+    host, card = nb.MeshTree(pts, device="cpu"), nb.MeshTree(pts, device=cuda)
+    for nq in (1, 129):
+        q = rng.rand(nq, 3)
+        got, ref = card.nearest(q), host.nearest(q)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        for cap in (0, 2, 64, 200):
+            got, ref = card.range_query(q, 0.25, cap), host.range_query(q, 0.25, cap)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)), (nq, cap)
+
+
+@pytest.mark.cuda
+def test_meshtree_keys_kernel_matches_its_plain_version(cuda):
+    """The keys kernel equals `morton_keys_reference` on the card and on the
+    CPU, bit for bit: random queries in and around the box, its corners,
+    +-1e9, +-inf and NaN; and on a one-point tree's box (scale 0)."""
+    rng = np.random.RandomState(14)
+    pts = rng.rand(1000, 3) * [1.0, 2.0, 0.5]
+    q = np.concatenate([rng.rand(5000, 3) * 3 - 1, pts.min(0)[None], pts.max(0)[None],
+                        [[1e9, -1e9, 0.2], [np.inf, -np.inf, np.nan], [np.nan] * 3]])
+    k0 = nb.morton_keys.launches
+    for box in (nb.morton_box(pts), nb.morton_box(pts[:1])):
+        qd = torch.as_tensor(q, device=cuda)
+        keys = nb.morton_keys(qd, box)
+        assert keys.device.type == "cuda" and keys.dtype == torch.int16
+        assert torch.equal(keys, nb.morton_keys_reference(qd, box))
+        assert torch.equal(keys.cpu(), nb.morton_keys(torch.as_tensor(q), box))
+    assert nb.morton_keys.launches - k0 == 2
+    assert nb.morton_keys(torch.zeros((0, 3), dtype=torch.float64, device=cuda),
+                          nb.morton_box(pts)).shape == (0,)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,13 @@ default contraction for C++, which fuses dist2's multiply-adds into FMAs
 where the host has them. So d2 equals the unfused sum of squares bit for
 bit in the port, and the JAX package's d2 to rtol 1e-12 (its own tests'
 tolerance); on dyadic points every product is exact, and d2 agrees bit for
-bit with the JAX package too."""
+bit with the JAX package too.
+
+The kernels' walks (`native/mirror.py`: the near child in registers,
+`nearest` pruned at pop; `range` pushing only where the ball straddles)
+are held to the host library bit for bit, and the query order's Morton
+keys and the nodes' records checked, on the host; the kernels themselves
+run in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ import torch
 from yade_openfoam_coupling_tpu.native import bindings as jnb
 from yade_openfoam_coupling_tpu_torch.native import MeshTree, available, bin_points
 from yade_openfoam_coupling_tpu_torch.native import bindings as tnb
+from yade_openfoam_coupling_tpu_torch.native import mirror
 
 H = 0.25          # the dyadic grid's spacing: every tie is exact in either build
 
@@ -44,6 +51,157 @@ def _face_queries(n, h=H):
 
 def _port(tree_out):
     return tuple(t.numpy() for t in tree_out)
+
+
+def _walk_case(name):
+    """(points, queries, radius, caps) of a walk case: test_native.py's
+    random clouds, the 8^3 dyadic centres queried on every face, edge and
+    corner, and 16^3 centres at random queries and at every 7th point of
+    the half-spacing lattice (faces, edges, corners). The last cap is below
+    some query's hit count."""
+    if name == "random500":
+        rng = np.random.RandomState(0)
+        return rng.rand(500, 3), rng.rand(64, 3), 0.2, (300, 5)
+    if name == "random300":
+        rng = np.random.RandomState(1)
+        return rng.rand(300, 3), rng.rand(16, 3), 0.2, (300, 3)
+    if name == "ties8":
+        return _centres(8), _face_queries(8), 1.5 * H, (64, 7)
+    h = 1.0 / 16
+    if name == "grid16_random":
+        return _centres(16, h), np.random.RandomState(9).rand(500, 3), 1.5 * h, (64, 9)
+    return _centres(16, h), _face_queries(16, h)[::7], 1.5 * h, (64, 9)
+
+
+WALK_CASES = ["random500", "random300", "ties8", "grid16_random", "grid16_faces"]
+
+
+def _arrays(tree):
+    return [a.numpy() for a in (tree.pts, tree.order, tree.axes)]
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_mirror_nearest_walk_matches_the_host_library(name):
+    """The kernel's nearest walk, pruned at pop, and the same walk unpruned
+    (the host's) give the host library's idx and d2 bit for bit, and the
+    pruned walk visits no more nodes than the host's on any query."""
+    pts, q, _, _ = _walk_case(name)
+    tree = MeshTree(pts, device="cpu")
+    hidx, hd2 = _port(tree.nearest(q))
+    idx, d2, visits, held = mirror.nearest(*_arrays(tree), q)
+    idx0, d20, visits0, held0 = mirror.nearest(*_arrays(tree), q, prune=False)
+    for i, d in ((idx, d2), (idx0, d20)):
+        np.testing.assert_array_equal(i, hidx)
+        np.testing.assert_array_equal(d, hd2)
+    assert (visits <= visits0).all() and visits.sum() < visits0.sum()
+    assert (visits >= 1).all()
+    assert max(held.max(), held0.max()) <= mirror.stack_depth(len(pts))
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+@pytest.mark.parametrize("which", ["above", "below"])
+def test_mirror_range_walk_matches_the_host_library(name, which):
+    """The kernel's range walk keeps the host library's members in the
+    host's order, its counts and its -1 padding, at a cap above every hit
+    count and at one below some."""
+    pts, q, r, caps = _walk_case(name)
+    cap = caps[0] if which == "above" else caps[1]
+    tree = MeshTree(pts, device="cpu")
+    hidx, hn = _port(tree.range_query(q, r, cap=cap))
+    idx, n, visits, held = mirror.range_query(*_arrays(tree), q, r, cap)
+    np.testing.assert_array_equal(idx, hidx)
+    np.testing.assert_array_equal(n, hn)
+    full = (_exact_d2(q, pts) <= r * r).sum(1)
+    assert (full > cap).any() == (which == "below")
+    assert (visits >= 1).all() and held.max() <= mirror.stack_depth(len(pts))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 255, 256, 1000])
+def test_walks_fit_the_stack_depth(n):
+    """No walk holds more far spans than the kernels allot (levels - 1):
+    a range over every point, whose ball straddles every plane, and
+    nearest from inside and far outside the cloud."""
+    rng = np.random.RandomState(n)
+    pts = rng.rand(n, 3)
+    tree = MeshTree(pts, device="cpu")
+    q = np.concatenate([rng.rand(8, 3), [[5.0, 5.0, 5.0], [-3.0, 0.5, 9.0]]])
+    depth = mirror.stack_depth(n)
+    assert depth == max(n.bit_length() - 1, 1)
+    _, cnt, _, held = mirror.range_query(*_arrays(tree), q, 20.0, n)
+    assert (cnt == n).all() and held.max() <= depth
+    if n in (3, 7, 255):                       # a full range over a perfect tree fills it
+        assert held.max() == depth
+    idx, d2, _, held = mirror.nearest(*_arrays(tree), q)
+    assert held.max() <= depth
+    np.testing.assert_array_equal(idx, _port(tree.nearest(q))[0])
+
+
+def test_node_records_hold_the_tree_in_tree_order():
+    """Record m is 32 bytes: pts[order[m]], order[m] and axes[m] bit for
+    bit, then 3 zero bytes."""
+    rng = np.random.RandomState(10)
+    tree = MeshTree(rng.rand(257, 3), device="cpu")
+    rec = tnb.node_records(tree.pts, tree.order, tree.axes)
+    assert rec.dtype == torch.float64 and rec.shape == (257, 4)
+    assert rec.element_size() * rec.shape[1] == tnb.RECORD_BYTES == 32
+    pts, order, axes = _arrays(tree)
+    r = rec.numpy()
+    np.testing.assert_array_equal(r[:, :3], pts[order])
+    np.testing.assert_array_equal(r.view(np.int32)[:, 6], order)
+    np.testing.assert_array_equal(r.view(np.int8)[:, 28], axes)
+    assert (r.view(np.uint8)[:, 29:] == 0).all()
+    assert set(np.unique(axes[axes != 0])) <= {1, 2} and (axes != 0).any()
+    assert tree.nodes is None and tree.box is None      # only a card tree keeps them
+
+
+def _order_queries(case):
+    if case == "random":
+        return np.random.RandomState(11).rand(2000, 3)
+    if case == "lattice":
+        from yade_openfoam_coupling_tpu_torch.scripts import meshtree_timing as mt
+        return mt.particle_queries(3000, 16, 1.0 / 16)
+    return np.concatenate([_face_queries(4), [[1e9, -1e9, 0.5], [-np.inf, np.inf, np.nan],
+                                              [0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]])
+
+
+@pytest.mark.parametrize("case", ["random", "lattice", "far_out_and_ties"])
+def test_query_order_is_a_permutation_along_ascending_keys(case):
+    """The order the kernels walk queries in: every query once, keys
+    ascending along it, equal keys in query order (a stable sort)."""
+    pts = _centres(16, 1.0 / 16)
+    box = tnb.morton_box(pts)
+    q = torch.as_tensor(_order_queries(case))
+    keys = tnb.morton_keys(q, box)
+    perm = tnb.query_order(q, box)
+    assert keys.dtype == torch.int16 and perm.dtype == torch.int64
+    assert torch.equal(perm.sort().values, torch.arange(len(q)))
+    k = keys[perm]
+    assert bool((k[1:] >= k[:-1]).all())
+    assert bool((perm[1:][k[1:] == k[:-1]] > perm[:-1][k[1:] == k[:-1]]).all())
+    assert bool((keys >= 0).all()) and int(keys.max()) < 2 ** (3 * tnb.KEY_BITS)
+
+
+def test_morton_keys_clamp_queries_outside_the_box():
+    """Cells are clamped in f64 before the cast: a query past a face, +-inf
+    or NaN takes the face's cell (NaN the lower), whatever its size; the
+    corners of the box are keys 0 and 2^15 - 1; an axis of no extent has
+    scale 0."""
+    pts = _centres(4)                       # box [0.125, 0.875]^3
+    box = tnb.morton_box(pts)
+    np.testing.assert_array_equal(box, [0.125] * 3 + [32 / 0.75] * 3)
+    top = 2 ** 15 - 1
+    q = torch.tensor([[0.125, 0.125, 0.125], [0.875, 0.875, 0.875], [-1e9, -1e9, -1e9],
+                      [1e9, 1e9, 1e9], [np.inf, -np.inf, np.nan], [1e300, 0.5, -1e300]],
+                     dtype=torch.float64)
+    keys = tnb.morton_keys(q, box).tolist()
+    x_only = int("100" * 5, 2)              # the x bits alone set
+    cell = int((0.5 - 0.125) * (32 / 0.75))
+    mid_y = sum(((cell >> b) & 1) << (3 * b + 1) for b in range(5))
+    assert keys == [0, top, 0, top, x_only, x_only | mid_y]
+    one = tnb.morton_box(np.array([[0.5, 0.5, 0.5]]))
+    np.testing.assert_array_equal(one, [0.5] * 3 + [0.0] * 3)
+    assert tnb.morton_keys(q, one).tolist() == [0] * 6
+    np.testing.assert_array_equal(tnb.morton_box(np.zeros((0, 3))), np.zeros(6))
 
 
 def test_host_library_builds_and_is_named_by_its_hash():

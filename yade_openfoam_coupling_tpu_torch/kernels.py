@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "rolls_deposit": {"yofc_rolls_deposit": 4},
     "laplacian": {"yofc_laplacian": 8, "yofc_laplacian_bf16": 8},
     "dynwin_staging": {"yofc_dynwin_staging": 5},
-    "meshtree": {"yofc_tree_nearest": 8, "yofc_tree_range": 9},
+    "meshtree": {"yofc_tree_keys": 5, "yofc_tree_nearest": 7, "yofc_tree_range": 8},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

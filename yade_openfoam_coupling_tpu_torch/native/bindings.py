@@ -6,11 +6,16 @@ libMeshTree capability).
 cloud of cell centres on the host, with the port's own copy of the host
 library (`meshtree.cpp`, compiled by ``g++`` at first use into the
 package's ``_build/``; a failed build raises with the compiler's output).
-On a CUDA device the tree's arrays are uploaded once and its queries are
-the kernels of ``csrc/meshtree.cu``, which walk the same tree in the host's
-order and return the host's answers bit for bit; a launch that fails
-raises. ``device="cpu"`` runs the host library's queries. There is no
-third route. `bin_points` is plain torch ops on either device.
+On a CUDA device the tree's arrays are uploaded once, with its nodes as
+32-byte records in tree order (`node_records`) and its bounding box, and
+its queries are the kernels of ``csrc/meshtree.cu``: each call gives its
+queries Morton keys in that box (`morton_keys`), walks them in the keys'
+stable sorted order (`query_order`) and writes each answer to its
+query's own row, so the order changes no answer. The walks visit nodes
+in the host's order (`nearest` skipping subtrees that hold no strictly
+nearer point) and return the host's answers bit for bit; a launch that
+fails raises. ``device="cpu"`` runs the host library's queries. There is
+no third route. `bin_points` is plain torch ops on either device.
 
 It locates points in arbitrary (non-uniform) cell-centre clouds, which the
 uniform-grid `ops.coupling.locate` cannot serve; no path of the solver
@@ -34,6 +39,9 @@ SOURCE = Path(__file__).resolve().parent / "meshtree.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 _NEAREST = "meshtree nearest kernel"
 _RANGE = "meshtree range kernel"
+_KEYS = "meshtree keys kernel"
+KEY_BITS = 5                  # Morton cells a side of the box: 2^KEY_BITS
+RECORD_BYTES = 32             # a node record: 3 f64, i32 index, i8 axis, 3 bytes padding
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -97,7 +105,9 @@ class MeshTree:
     ``points`` (n, 3) is a tensor or a numpy array; ``device`` the device
     of the tree's arrays (``pts`` (n, 3) f64, ``order`` (n,) i32, ``axes``
     (n,) i8), of its queries and of their results. A CPU tree keeps the host
-    library's tree for its queries; a CUDA tree frees it once uploaded."""
+    library's tree for its queries; a CUDA tree frees it once uploaded and
+    keeps ``nodes`` (n, 4) f64, the records the kernels walk, and ``box``
+    (lo (3), scale (3)) f64 of its Morton keys."""
 
     def __init__(self, points, device="cuda"):
         self.device = torch.device(device)
@@ -115,7 +125,10 @@ class MeshTree:
         self._lib.yofc_tree_export(self._handle, _ptr(pts), _ptr(order), _ptr(axes))
         self.pts, self.order, self.axes = (torch.from_numpy(a).to(self.device)
                                            for a in (pts, order, axes))
-        if self.device.type == "cuda":      # the kernels walk the uploaded arrays alone
+        self.nodes = self.box = None
+        if self.device.type == "cuda":      # the kernels walk the uploaded records alone
+            self.nodes = node_records(pts, order, axes).to(self.device)
+            self.box = morton_box(pts)
             self._lib.yofc_tree_free(self._handle)
             self._handle = None
 
@@ -151,6 +164,78 @@ class MeshTree:
         return idx, n
 
 
+def node_records(pts, order, axes) -> torch.Tensor:
+    """The nodes the kernels walk, in tree order, as (n, 4) f64 on the CPU:
+    record m (32 bytes) holds pts[order[m]] (3 x f64), order[m] (i32,
+    bytes 24-27), axes[m] (i8, byte 28) and 3 zero bytes. ``pts``,
+    ``order``, ``axes`` are the tree's exported arrays (numpy or CPU
+    tensors)."""
+    pts, order, axes = (np.asarray(a) for a in (pts, order, axes))
+    rec = np.zeros((order.shape[0], RECORD_BYTES // 8), np.float64)
+    rec[:, :3] = pts[order]
+    rec.view(np.int32)[:, 6] = order
+    rec.view(np.int8)[:, 28] = axes
+    return torch.from_numpy(rec)
+
+
+def morton_box(pts: np.ndarray) -> np.ndarray:
+    """(lo (3), scale (3)) f64 of the Morton keys of queries to a tree over
+    ``pts`` (n, 3): the box's lower corner and 2^KEY_BITS cells over its
+    extent on each axis (scale 0 on an axis of no extent, or one whose
+    scale would not be finite)."""
+    if pts.shape[0] == 0:
+        return np.zeros(6)
+    lo = pts.min(0)
+    ext = pts.max(0) - lo
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        scale = np.where(ext > 0, float(2 ** KEY_BITS) / ext, 0.0)
+    scale[~np.isfinite(scale)] = 0.0
+    return np.concatenate([lo, scale]).astype(np.float64)
+
+
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """Up to 10 bits of each int64 spread to every third bit."""
+    for shift, mask in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3), (2, 0x09249249)):
+        x = (x | (x << shift)) & mask
+    return x
+
+
+def morton_keys_reference(q: torch.Tensor, box: np.ndarray) -> torch.Tensor:
+    """Plain version of the keys kernel: for queries (nq, 3) f64, the cell
+    c = min(max(floor((q - lo) * scale), 0), 2^KEY_BITS - 1) on each axis,
+    clamped in f64 before the cast (a query however far out, or NaN, lands
+    on the box's face), and its bits interleaved, x highest: (nq,) i16
+    keys below 2^(3 KEY_BITS)."""
+    b = torch.as_tensor(np.asarray(box, np.float64), device=q.device)
+    t = torch.floor((q - b[:3]) * b[3:])
+    c = torch.fmin(torch.fmax(t, t.new_tensor(0.0)), t.new_tensor(2.0 ** KEY_BITS - 1))
+    c = c.to(torch.int64)
+    key = (_spread3(c[:, 0]) << 2) | (_spread3(c[:, 1]) << 1) | _spread3(c[:, 2])
+    return key.to(torch.int16)
+
+
+def morton_keys(q: torch.Tensor, box: np.ndarray) -> torch.Tensor:
+    """The Morton keys of contiguous f64 queries (nq, 3) in a tree's
+    ``box`` (`morton_box`): the plain version on a CPU tensor, the keys
+    kernel of csrc/meshtree.cu on a CUDA tensor (or raise)."""
+    if q.device.type == "cpu":
+        return morton_keys_reference(q, box)
+    from ..kernels import call
+    keys = torch.empty(q.shape[0], dtype=torch.int16, device=q.device)
+    if q.shape[0]:
+        call("meshtree", "yofc_tree_keys", _KEYS, np.asarray([q.shape[0]], np.int32),
+             np.ascontiguousarray(box, np.float64), q, keys, device=q.device)
+        morton_keys.launches += 1
+    return keys
+
+
+def query_order(q: torch.Tensor, box: np.ndarray) -> torch.Tensor:
+    """The order the kernels walk queries in: the stable sort of their
+    Morton keys, (nq,) i64 query indices. A permutation of the queries,
+    so it changes no answer; equal keys keep the caller's order."""
+    return torch.sort(morton_keys(q, box), stable=True).indices
+
+
 def _check_queries(nq: int) -> None:
     if nq >= 2 ** 31:
         raise ValueError(f"MeshTree: {nq} queries; an int32 count takes < 2^31")
@@ -158,8 +243,9 @@ def _check_queries(nq: int) -> None:
 
 def tree_nearest(tree: MeshTree, q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """`MeshTree.nearest` on contiguous f64 queries (nq, 3) on the tree's
-    device. A CPU tree runs the host library; a CUDA tree launches the
-    kernel of csrc/meshtree.cu or raises."""
+    device. A CPU tree runs the host library; a CUDA tree orders the
+    queries (`query_order`) and launches the kernel of csrc/meshtree.cu,
+    or raises."""
     nq = q.shape[0]
     _check_queries(nq)
     if tree.device.type == "cpu":
@@ -169,16 +255,17 @@ def tree_nearest(tree: MeshTree, q: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     d2 = torch.empty(nq, dtype=torch.float64, device=q.device)
     if nq:
         ip = np.asarray([tree.n, nq], np.int32)
-        call("meshtree", "yofc_tree_nearest", _NEAREST, ip, tree.pts, tree.order, tree.axes, q,
-             idx, d2, device=q.device)
+        call("meshtree", "yofc_tree_nearest", _NEAREST, ip, tree.nodes, q,
+             query_order(q, tree.box), idx, d2, device=q.device)
         tree_nearest.launches += 1
     return idx, d2
 
 
 def tree_range(tree: MeshTree, q: torch.Tensor, radius: float, cap: int):
     """`MeshTree.range_query` on contiguous f64 queries (nq, 3) on the
-    tree's device. A CPU tree runs the host library; a CUDA tree launches
-    the kernel of csrc/meshtree.cu or raises."""
+    tree's device. A CPU tree runs the host library; a CUDA tree orders
+    the queries (`query_order`) and launches the kernel of
+    csrc/meshtree.cu, or raises."""
     nq = q.shape[0]
     _check_queries(nq)
     if cap < 0:
@@ -191,14 +278,15 @@ def tree_range(tree: MeshTree, q: torch.Tensor, radius: float, cap: int):
     if nq:
         ip = np.asarray([tree.n, nq, cap], np.int32)
         fp = np.asarray([radius], np.float64)
-        call("meshtree", "yofc_tree_range", _RANGE, ip, fp, tree.pts, tree.order, tree.axes, q,
-             idx, n, device=q.device)
+        call("meshtree", "yofc_tree_range", _RANGE, ip, fp, tree.nodes, q,
+             query_order(q, tree.box), idx, n, device=q.device)
         tree_range.launches += 1
     return idx, n
 
 
 tree_nearest.launches = 0
 tree_range.launches = 0
+morton_keys.launches = 0
 
 
 def bin_points(points, origin, spacing, dims, device="cuda"):
