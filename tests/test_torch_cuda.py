@@ -1132,3 +1132,54 @@ def test_bin_points_on_the_card_matches_cpu(cuda):
     for got, ref in zip(nb.bin_points(pts, *args, device=cuda),
                         nb.bin_points(pts, *args, device="cpu")):
         assert got.device.type == "cuda" and torch.equal(got.cpu(), ref)
+
+
+def _sync_case(kind: str):
+    """A small case of each solver and exchange: bench.py's window + fftpcg,
+    or bench_1m's planes in 8 x-slabs + mgpcg, at 32^3, a rebuild every 2
+    steps."""
+    from yade_openfoam_coupling_tpu_torch import bench
+    from yade_openfoam_coupling_tpu_torch.scripts import bench_1m
+    cfg = (bench.bench_config(32) if kind == "window_fftpcg" else
+           bench_1m.case_config(bench_1m.build_parser().parse_args([]), 32))
+    return dataclasses.replace(cfg, dem=dataclasses.replace(cfg.dem, list_rebuild_steps=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window_fftpcg", "planes_mgpcg"])
+def test_every_stream_sync_lies_in_a_sync_span(cuda, kind, tmp_path):
+    """One traced chunk after a warm-up one: every cudaStreamSynchronize or
+    cudaDeviceSynchronize the chunk makes lies inside a ``yofc:sync.*``
+    span, and there are as many as spans, so no synchronisation escapes
+    the spans and no span is without one."""
+    import json
+
+    from yade_openfoam_coupling_tpu_torch import bench
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+    from yade_openfoam_coupling_tpu_torch.utils import profiling
+
+    cfg = _sync_case(kind)
+    run = cd.make_scan_fn(cfg, 2)
+    state, _ = run(bench.initial_state(cfg, 2000, cuda))
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        with torch.profiler.record_function("test.chunk"):
+            run(state)
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    (c0, c1), = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == "test.chunk"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("yofc:")]
+    sync_spans = [s for s in spans if s[2].startswith("yofc:sync.")]
+    syncs = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e["name"] in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+             and c0 <= e["ts"] <= c1]
+
+    def innermost(t):
+        inside = [s for s in spans if s[0] <= t <= s[1]]
+        return max(inside)[2] if inside else None
+
+    escaped = [(e["name"], innermost(e["ts"])) for e in syncs
+               if not any(s <= e["ts"] and e["ts"] + e["dur"] <= t for s, t, _ in sync_spans)]
+    assert syncs and escaped == [], sorted(set(escaped))
+    assert len(syncs) == len(sync_spans), (len(syncs), len(sync_spans))

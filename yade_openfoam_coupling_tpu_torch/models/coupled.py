@@ -17,6 +17,8 @@ device); then the diagnostics. The adaptive fluid dt is capped by the
 explicit-diffusion bound (not under implicit diffusion) and clamped to
 ``n_dem_substeps`` critical dts under ``enforce_critical_dt`` or
 ``dynamic_substeps``.
+Each stage runs inside a ``yofc:`` span (`utils.profiling.annotate`),
+recorded only while a profiler runs.
 `make_step_fn` runs one step; `make_scan_fn` runs the steps as a Python
 loop, in chunks of [one Verlet-list rebuild -> K frozen-list steps] under
 ``list_reuse``, and stacks the per-step diagnostics along a leading axis.
@@ -47,6 +49,7 @@ from ..utils.diagnostics import (
     diffusive_dt_bound,
     new_dt,
 )
+from ..utils.profiling import annotate, host_tensor, spanned
 from . import turbulence as turb_mod
 from .fields import FluidState, ParticleState, SimState, StepDiagnostics, TurbulenceState
 from .pimple import PIMPLEConfig, pimple_step
@@ -136,6 +139,7 @@ def _check_supported(cfg: CaseConfig) -> None:
         raise ValueError(f"unknown coupling exchange {cfg.coupling.exchange!r}")
 
 
+@spanned("yofc:exchange.inputs")
 def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
                      ctx, ccfg: cp.CouplingConfig):
     """The derived grid fields the exchange consumes: grad p and the viscous
@@ -157,6 +161,7 @@ def _coupling_inputs(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float, dt,
     return curl_u, grad_p, div_tau, ddt_u
 
 
+@spanned("yofc:exchange")
 def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
              tp: TransportProperties, cfg: cp.CouplingConfig, dt,
              ctx=None) -> cp.CouplingResult:
@@ -186,6 +191,7 @@ def exchange(fs: FluidState, ps: ParticleState, grid: Grid, bcs: FluidBCs,
         prev_alpha=fs.alpha)
 
 
+@spanned("yofc:dem.list_build")
 def _rebuild(particles: ParticleState, cfg: CaseConfig, return_overflow: bool = False):
     """Fresh Verlet list; its reference positions are a copy of pos, never
     an alias, so the staleness test reads the drift of later updates. With
@@ -245,6 +251,7 @@ def initialize_state(fluid: FluidState, particles: ParticleState,
     )
 
 
+@spanned("yofc:step")
 def coupled_step(state: SimState, cfg: CaseConfig, ctx=None, exchange_fn=None,
                  dem_fn=None, fluid_fn=None, frozen_list: bool = False,
                  lite_diag: bool = False) -> Tuple[SimState, StepDiagnostics]:
@@ -275,25 +282,26 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None, exchange_fn=None,
     izero = torch.zeros((), dtype=torch.int32, device=dev)
 
     # 1. Courant + adaptive dt
-    if lite_diag and not cfg.time.adjust_time_step:
-        co_mean = co_max = zero
-    else:
-        co_mean, co_max = courant(fs.phi, grid, state.dt, ctx)
-    if cfg.time.adjust_time_step:
-        if cfg.solver == "pimple" and cfg.pimple.implicit_diffusion:
-            dt_diff = None      # implicit diffusion has no stability bound
+    with annotate("yofc:dt"):
+        if lite_diag and not cfg.time.adjust_time_step:
+            co_mean = co_max = zero
         else:
-            # PISO's momentum diffusion is laminar: no nut in its bound
-            nut_max = ctx.max(torch.amax(tb.nut)) if cfg.solver == "pimple" else 0.0
-            dt_diff = diffusive_dt_bound(grid, tp.nu, nut_max)
-        dt = new_dt(co_max, state.dt, cfg.time, dt_diff=dt_diff)
-        if cfg.dem.enforce_critical_dt or cfg.dem.dynamic_substeps:
-            # DEM stability: dt / n_dem_substeps <= the Rayleigh critical dt
-            # (with dynamic_substeps only the backstop past the static max)
-            dt_c = ctx.min(demod.critical_dt_dynamic(ps.radius, ps.active, cfg.dem.params))
-            dt = torch.minimum(dt, cfg.n_dem_substeps * dt_c)
-    else:
-        dt = state.dt
+            co_mean, co_max = courant(fs.phi, grid, state.dt, ctx)
+        if cfg.time.adjust_time_step:
+            if cfg.solver == "pimple" and cfg.pimple.implicit_diffusion:
+                dt_diff = None      # implicit diffusion has no stability bound
+            else:
+                # PISO's momentum diffusion is laminar: no nut in its bound
+                nut_max = ctx.max(torch.amax(tb.nut)) if cfg.solver == "pimple" else 0.0
+                dt_diff = diffusive_dt_bound(grid, tp.nu, nut_max)
+            dt = new_dt(co_max, state.dt, cfg.time, dt_diff=dt_diff)
+            if cfg.dem.enforce_critical_dt or cfg.dem.dynamic_substeps:
+                # DEM stability: dt / n_dem_substeps <= the Rayleigh critical dt
+                # (with dynamic_substeps only the backstop past the static max)
+                dt_c = ctx.min(demod.critical_dt_dynamic(ps.radius, ps.active, cfg.dem.params))
+                dt = torch.minimum(dt, cfg.n_dem_substeps * dt_c)
+        else:
+            dt = state.dt
 
     # 2-3. coupling exchange
     if exchange_fn is None:
@@ -313,7 +321,7 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None, exchange_fn=None,
         dt_dem = dt / n_eff.to(dt.dtype)
         dt_seq = torch.where(torch.arange(n_sub, device=dev) < n_eff, dt_dem, zero)
     else:
-        n_eff = torch.tensor(n_sub, dtype=torch.int32, device=dev)
+        n_eff = host_tensor(n_sub, dtype=torch.int32, device=dev)
         dt_dem = dt / n_sub
         dt_seq = None
     hydro = demod.DEMForces(cres.force, cres.torque)
@@ -337,31 +345,32 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None, exchange_fn=None,
                 ps.pos, ps.nbr_ref_pos, ps.active, grid, cfg.dem.periodic)) >= margin):
             ps, n_list_overflow = _rebuild(ps, cfg, return_overflow=True)
         nbr = ps.nbr
-    if dem_fn is not None:
-        # dt_seq only when dynamic: custom closures keep the 3-argument form
-        extra = () if dt_seq is None else (dt_seq,)
-        if cfg.dem.shear_history:
-            pos, vel, angvel, n_overflow, sh = dem_fn(ps, hydro, dt_dem, *extra)
+    with annotate("yofc:dem.substeps"):
+        if dem_fn is not None:
+            # dt_seq only when dynamic: custom closures keep the 3-argument form
+            extra = () if dt_seq is None else (dt_seq,)
+            if cfg.dem.shear_history:
+                pos, vel, angvel, n_overflow, sh = dem_fn(ps, hydro, dt_dem, *extra)
+                ps = ps._replace(shear_xi=sh.xi, shear_ids=sh.ids, shear_wall=sh.xi_wall)
+            else:
+                pos, vel, angvel, n_overflow = dem_fn(ps, hydro, dt_dem, *extra)
+        elif cfg.dem.shear_history:
+            pos, vel, angvel, n_overflow, sh = demod.dem_substeps(
+                ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
+                cfg.dem, dt_dem, n_sub, cfg.r_max,
+                shear=demod.ShearState(ps.shear_xi, ps.shear_ids, ps.shear_wall),
+                pid=ps.pid, nbr=nbr, dt_seq=dt_seq)
             ps = ps._replace(shear_xi=sh.xi, shear_ids=sh.ids, shear_wall=sh.xi_wall)
+        elif cfg.dem.carry_contact and cfg.dem.contact_mode == "substep":
+            carried = None if ps.contact_f is None else (ps.contact_f, ps.contact_t)
+            pos, vel, angvel, n_overflow, fc, tc = demod.dem_substeps(
+                ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
+                cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, carried=carried, dt_seq=dt_seq)
+            ps = ps._replace(contact_f=fc, contact_t=tc)
         else:
-            pos, vel, angvel, n_overflow = dem_fn(ps, hydro, dt_dem, *extra)
-    elif cfg.dem.shear_history:
-        pos, vel, angvel, n_overflow, sh = demod.dem_substeps(
-            ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
-            cfg.dem, dt_dem, n_sub, cfg.r_max,
-            shear=demod.ShearState(ps.shear_xi, ps.shear_ids, ps.shear_wall),
-            pid=ps.pid, nbr=nbr, dt_seq=dt_seq)
-        ps = ps._replace(shear_xi=sh.xi, shear_ids=sh.ids, shear_wall=sh.xi_wall)
-    elif cfg.dem.carry_contact and cfg.dem.contact_mode == "substep":
-        carried = None if ps.contact_f is None else (ps.contact_f, ps.contact_t)
-        pos, vel, angvel, n_overflow, fc, tc = demod.dem_substeps(
-            ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
-            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, carried=carried, dt_seq=dt_seq)
-        ps = ps._replace(contact_f=fc, contact_t=tc)
-    else:
-        pos, vel, angvel, n_overflow = demod.dem_substeps(
-            ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
-            cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, dt_seq=dt_seq)
+            pos, vel, angvel, n_overflow = demod.dem_substeps(
+                ps.pos, ps.vel, ps.angvel, ps.radius, ps.active, hydro, grid,
+                cfg.dem, dt_dem, n_sub, cfg.r_max, nbr=nbr, dt_seq=dt_seq)
     n_overflow = n_overflow + n_list_overflow
     ps = ps._replace(pos=pos, vel=vel, angvel=angvel)
 
@@ -378,37 +387,39 @@ def coupled_step(state: SimState, cfg: CaseConfig, ctx=None, exchange_fn=None,
         tc = cfg.turbulence
         walls = (cfg.wall_layers(dev, _slab_of(ctx, fs.p)) if tc.model == "kEpsilon"
                  and tc.wall_functions else None)
-        tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, tc, ctx=ctx, walls=walls)
-        g = torch.tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
+        with annotate("yofc:fluid.turbulence"):
+            tb2 = turb_mod.correct(tb, fs, grid, bcs, tp.nu, dt, tc, ctx=ctx, walls=walls)
+        g = host_tensor(cfg.gravity_fluid, dtype=fs.u.dtype, device=dev)
         fs2, info = pimple_step(fs, grid, bcs, tp.nu, tb2.nut, g, dt, cfg.pimple, ctx=ctx,
                                 masks=masks)
     fs2 = fs2._replace(u_old=u_prev)
     if fs.p_prev is not None:
         fs2 = fs2._replace(p_prev=fs.p)
 
-    if lite_diag:
-        cont_local = cont_global = max_speed = zero
-    else:
-        cont_local, cont_global = continuity_errors(
-            fs2.phi, fs2.alpha, fs2.alpha_old, grid, dt, ctx)
-        max_speed = ctx.max(torch.amax(torch.where(
-            ps.active, demod._norm3(ps.vel), zero)))
-    diag = StepDiagnostics(
-        co_mean=co_mean,
-        co_max=co_max,
-        cont_err_local=cont_local,
-        cont_err_global=cont_global,
-        p_iters=info.iters,
-        p_initial_residual=info.initial_residual,
-        p_final_residual=info.final_residual,
-        n_found=ctx.sum(torch.sum(cres.found.to(torch.int32))),
-        max_particle_speed=max_speed,
-        n_contact_overflow=ctx.sum(n_overflow).to(torch.int32),
-        n_coupling_overflow=ctx.sum(torch.as_tensor(cres.n_overflow, dtype=torch.int32,
-                                                     device=dev)),
-        n_shard_overflow=izero,
-        n_dem_sub=n_eff,
-    )
+    with annotate("yofc:diagnostics"):
+        if lite_diag:
+            cont_local = cont_global = max_speed = zero
+        else:
+            cont_local, cont_global = continuity_errors(
+                fs2.phi, fs2.alpha, fs2.alpha_old, grid, dt, ctx)
+            max_speed = ctx.max(torch.amax(torch.where(
+                ps.active, demod._norm3(ps.vel), zero)))
+        diag = StepDiagnostics(
+            co_mean=co_mean,
+            co_max=co_max,
+            cont_err_local=cont_local,
+            cont_err_global=cont_global,
+            p_iters=info.iters,
+            p_initial_residual=info.initial_residual,
+            p_final_residual=info.final_residual,
+            n_found=ctx.sum(torch.sum(cres.found.to(torch.int32))),
+            max_particle_speed=max_speed,
+            n_contact_overflow=ctx.sum(n_overflow).to(torch.int32),
+            n_coupling_overflow=ctx.sum(host_tensor(cres.n_overflow, dtype=torch.int32,
+                                                    device=dev)),
+            n_shard_overflow=izero,
+            n_dem_sub=n_eff,
+        )
     new_state = SimState(fluid=fs2, particles=ps, turb=tb2, t=state.t + dt,
                          dt=dt, step=state.step + 1)
     return new_state, diag
@@ -420,6 +431,7 @@ def make_step_fn(cfg: CaseConfig):
     return lambda state: coupled_step(state, cfg)
 
 
+@spanned("yofc:diagnostics")
 def _stack_diags(diags) -> StepDiagnostics:
     return StepDiagnostics(*[torch.stack(list(xs)) for xs in zip(*diags)])
 

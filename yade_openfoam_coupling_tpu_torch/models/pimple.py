@@ -24,6 +24,7 @@ from ..ops import obstacle as ob
 from ..ops import pressure as pr
 from ..ops import stencil as st
 from ..ops.grid import FieldBC, Grid
+from ..utils.profiling import spanned
 from .fields import FluidState
 from .piso import FluidBCs, PressureSolveInfo, _needs_adjust_phi, _precond_bc_for
 
@@ -50,6 +51,7 @@ class PIMPLEConfig:
 _NEU = FieldBC.uniform("neumann")
 
 
+@spanned("yofc:fluid.pimple")
 def pimple_step(fs: FluidState, grid: Grid, bcs: FluidBCs, nu: float,
                 nut: torch.Tensor, g: torch.Tensor, dt,
                 cfg: PIMPLEConfig = PIMPLEConfig(), ctx=None,

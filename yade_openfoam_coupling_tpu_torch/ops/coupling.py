@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import host_tensor
 from . import rolls
 from .grid import Grid
 
@@ -96,10 +97,10 @@ class CouplingResult(NamedTuple):
 
 def locate(pos: torch.Tensor, grid: Grid) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cell index (N,3) int32 and in-domain mask: floor((x - x0)/h)."""
-    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=pos.device)
-    h = torch.tensor(grid.spacing, dtype=pos.dtype, device=pos.device)
+    origin = host_tensor(grid.origin, dtype=pos.dtype, device=pos.device)
+    h = host_tensor(grid.spacing, dtype=pos.dtype, device=pos.device)
     idx = torch.floor((pos - origin) / h).to(torch.int32)
-    n = torch.tensor(grid.shape, dtype=torch.int32, device=pos.device)
+    n = host_tensor(grid.shape, dtype=torch.int32, device=pos.device)
     inside = torch.all((idx >= 0) & (idx < n), dim=-1)
     return idx, inside
 
@@ -165,7 +166,7 @@ def _wrap_flat(cells3: torch.Tensor, valid: torch.Tensor, grid: Grid) -> torch.T
     """(N,3) int cell indices -> flat ids wrapped mod n on every axis (masked
     contributions are zero wherever they land), scrap when invalid."""
     nx, ny, nz = grid.shape
-    n = torch.tensor(grid.shape, dtype=torch.int32, device=cells3.device)
+    n = host_tensor(grid.shape, dtype=torch.int32, device=cells3.device)
     w = torch.remainder(cells3, n)
     flat = w[..., 0] * (ny * nz) + w[..., 1] * nz + w[..., 2]
     return torch.where(valid, flat, nx * ny * nz)
@@ -195,7 +196,7 @@ def gaussian_cells_raw_weights(pos: torch.Tensor, active: torch.Tensor, grid: Gr
     cells = []
     d2 = 0.0
     for a in range(3):
-        off_a = torch.as_tensor(offsets[:, a], dtype=torch.int32, device=pos.device)
+        off_a = host_tensor(offsets[:, a], dtype=torch.int32, device=pos.device)
         ca = base[:, a:a + 1] + off_a[None, :]
         cells.append(ca)
         centers_a = grid.origin[a] + (ca.to(pos.dtype) + 0.5) * grid.spacing[a]
@@ -502,15 +503,15 @@ def trilinear_cells_raw_weights(pos: torch.Tensor, active: torch.Tensor, grid: G
     """Unwrapped corner cell indices (3-tuple of (N,8)), trilinear weights
     (N,8) and the in-domain mask (N,): in node space, where integer points
     are cell centres, the anchor is floor((x - x0)/h - 1/2)."""
-    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=pos.device)
-    h = torch.tensor(grid.spacing, dtype=pos.dtype, device=pos.device)
+    origin = host_tensor(grid.origin, dtype=pos.dtype, device=pos.device)
+    h = host_tensor(grid.spacing, dtype=pos.dtype, device=pos.device)
     s = (pos - origin) / h - 0.5
     base = torch.floor(s).to(torch.int32)
     frac = s - base.to(pos.dtype)
     cells = []
     w = 1.0
     for a in range(3):
-        corn_a = torch.as_tensor(TRILINEAR_CORNERS[:, a], dtype=torch.int32, device=pos.device)
+        corn_a = host_tensor(TRILINEAR_CORNERS[:, a], dtype=torch.int32, device=pos.device)
         cells.append(base[:, a:a + 1] + corn_a[None, :])
         fa = frac[:, a:a + 1]
         w = w * torch.where(corn_a[None, :] == 1, fa, 1.0 - fa)

@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import coupling as cp
 from .dem import rank_in_sorted_segments
 from .grid import Grid
@@ -717,37 +718,40 @@ def gaussian_coupling_planes(
     cfg: cp.CouplingConfig,
     prev_alpha=None,
 ) -> cp.CouplingResult:
-    """The planes exchange on the whole grid: bin, run the fused kernel
-    (or the interpolation kernel, the force laws and the deposit kernel
-    under ``fused_planes=False``), land the stacks, unbin."""
+    """The planes exchange on the whole grid: bin (``yofc:exchange.bin``),
+    run the fused kernel (or the interpolation kernel, the force laws and
+    the deposit kernel under ``fused_planes=False``), land the stacks,
+    unbin (``yofc:exchange.kernel``)."""
     if not cfg.lag_alpha:
         raise ValueError("exchange='planes' requires lag_alpha=True")
     cap = cfg.slot_capacity
     ncells = grid.ncells
-    bins = bin_particles_planes(pf, grid, cap, with_angvel=cfg.use_torque,
-                                packed_bin=cfg.packed_bin)
+    with annotate("yofc:exchange.bin"):
+        bins = bin_particles_planes(pf, grid, cap, with_angvel=cfg.use_torque,
+                                    packed_bin=cfg.packed_bin)
     F = _input_stack(fluid_u, grad_p, div_tau, ddt_u, curl_u, prev_alpha, cfg)
 
-    if cfg.fused_planes:
-        stks, combos, per = fused_exchange_padded(
-            pad_wrap_zero(F, periodic), bins.D, grid, periodic, cfg, 0, nu, rho_f,
-            max_occupied=pf.pos.shape[0])
-        fields = _stack_epilogue(stks, combos)
-    else:
-        G, norm = interp_planes(F, bins.D, grid, periodic, cfg)
-        V, force, torque, found = _physics_planes(
-            bins.D, G, norm, grid.cell_volume, nu, rho_f, cfg)
-        # the per-slot normalisation folds into V, so the deposit kernel
-        # runs one raw-weight pass
-        zero = torch.zeros((), dtype=norm.dtype, device=norm.device)
-        inv_norm = torch.where(norm > 0.0, 1.0 / torch.where(norm > 0.0, norm, 1.0), zero)
-        fields = deposit_planes(V * inv_norm[None], bins.D, grid, periodic, cfg,
-                                max_occupied=pf.pos.shape[0])
-        per = torch.cat([force, torque, found.to(force.dtype)[None]])
+    with annotate("yofc:exchange.kernel"):
+        if cfg.fused_planes:
+            stks, combos, per = fused_exchange_padded(
+                pad_wrap_zero(F, periodic), bins.D, grid, periodic, cfg, 0, nu, rho_f,
+                max_occupied=pf.pos.shape[0])
+            fields = _stack_epilogue(stks, combos)
+        else:
+            G, norm = interp_planes(F, bins.D, grid, periodic, cfg)
+            V, force, torque, found = _physics_planes(
+                bins.D, G, norm, grid.cell_volume, nu, rho_f, cfg)
+            # the per-slot normalisation folds into V, so the deposit kernel
+            # runs one raw-weight pass
+            zero = torch.zeros((), dtype=norm.dtype, device=norm.device)
+            inv_norm = torch.where(norm > 0.0, 1.0 / torch.where(norm > 0.0, norm, 1.0), zero)
+            fields = deposit_planes(V * inv_norm[None], bins.D, grid, periodic, cfg,
+                                    max_occupied=pf.pos.shape[0])
+            per = torch.cat([force, torque, found.to(force.dtype)[None]])
 
-    res = _unbin_rows(per, bins.cell_sorted, bins.rank, bins.keep, ncells,
-                      cfg)[bins.inv_order]
-    return _coupling_result(fields.reshape(8, ncells), res, bins.n_overflow, grid, cfg)
+        res = _unbin_rows(per, bins.cell_sorted, bins.rank, bins.keep, ncells,
+                          cfg)[bins.inv_order]
+        return _coupling_result(fields.reshape(8, ncells), res, bins.n_overflow, grid, cfg)
 
 
 def gaussian_coupling_planes_chunked(
@@ -773,7 +777,9 @@ def gaussian_coupling_planes_chunked(
     origin, the stacks landed into a halo-extended slab and added into the
     global fields with the two wrapped halo planes, and the windowed unbin
     written back under the slab's rows. A slab population beyond N_w adds
-    to n_overflow, as do slot-capacity drops."""
+    to n_overflow, as do slot-capacity drops. Spans: the global sort and
+    each slab's store in ``yofc:exchange.bin``; each slab's kernel,
+    epilogue and unbin, and the result, in ``yofc:exchange.kernel``."""
     if not cfg.lag_alpha:
         raise ValueError("exchange='planes' requires lag_alpha=True")
     if not cfg.fused_planes:
@@ -792,26 +798,27 @@ def gaussian_coupling_planes_chunked(
     N = pos.shape[0]
     N_w = min(N, max(1024, int(2 * N / n_chunks + 1023) // 1024 * 1024))
 
-    # global locate + one sort
-    base, inside = cp.locate(pos, grid)
-    valid = pf.active & inside
-    cell = base[:, 0] * (ny * nz) + base[:, 1] * nz + base[:, 2]
-    cell = torch.where(valid, cell, ncells)
-    order = torch.argsort(cell, stable=True)
-    inv_order = torch.argsort(order, stable=True)
-    cell_s = cell[order]
-    rank_s = rank_in_sorted_segments(cell_s)
-    cols = [pos, pf.vel, pf.radius[:, None]]
-    if cfg.use_torque:
-        cols.append(pf.angvel)
-    dat_s = torch.cat(cols, dim=-1)[order]
+    with annotate("yofc:exchange.bin"):
+        # global locate + one sort
+        base, inside = cp.locate(pos, grid)
+        valid = pf.active & inside
+        cell = base[:, 0] * (ny * nz) + base[:, 1] * nz + base[:, 2]
+        cell = torch.where(valid, cell, ncells)
+        order = torch.argsort(cell, stable=True)
+        inv_order = torch.argsort(order, stable=True)
+        cell_s = cell[order]
+        rank_s = rank_in_sorted_segments(cell_s)
+        cols = [pos, pf.vel, pf.radius[:, None]]
+        if cfg.use_torque:
+            cols.append(pf.angvel)
+        dat_s = torch.cat(cols, dim=-1)[order]
 
-    bounds = torch.searchsorted(
-        cell_s.to(torch.int64),
-        torch.arange(n_chunks + 1, device=dev, dtype=torch.int64) * ncl)
-    counts = bounds[1:] - bounds[:-1]
-    window_over = torch.sum(torch.clamp(counts - N_w, min=0))
-    slot_over = torch.sum(((rank_s >= cap) & (cell_s < ncells)).to(torch.int32))
+        bounds = torch.searchsorted(
+            cell_s.to(torch.int64),
+            torch.arange(n_chunks + 1, device=dev, dtype=torch.int64) * ncl)
+        counts = bounds[1:] - bounds[:-1]
+        window_over = torch.sum(torch.clamp(counts - N_w, min=0))
+        slot_over = torch.sum(((rank_s >= cap) & (cell_s < ncells)).to(torch.int32))
 
     Fpg = pad_wrap_zero(_input_stack(fluid_u, grad_p, div_tau, ddt_u, curl_u,
                                      prev_alpha, cfg), periodic)
@@ -821,34 +828,38 @@ def gaussian_coupling_planes_chunked(
     for c in range(n_chunks):
         x0 = c * nxc
         s, e = bounds[c], bounds[c + 1]
-        start = torch.clamp(torch.clamp(s, max=N - N_w), min=0)
-        idx_w = start + ar
-        dat_w, cell_w, rank_w = dat_s[idx_w], cell_s[idx_w], rank_s[idx_w]
-        in_chunk = (idx_w >= s) & (idx_w < e)
-        cell_loc = cell_w - x0 * (ny * nz)
-        keep = in_chunk & (rank_w < cap) & (cell_w < ncells)
-        D = _staging_store(dat_w, cell_loc, rank_w, keep, C_d, cap, ncl)
+        with annotate("yofc:exchange.bin"):
+            start = torch.clamp(torch.clamp(s, max=N - N_w), min=0)
+            idx_w = start + ar
+            dat_w, cell_w, rank_w = dat_s[idx_w], cell_s[idx_w], rank_s[idx_w]
+            in_chunk = (idx_w >= s) & (idx_w < e)
+            cell_loc = cell_w - x0 * (ny * nz)
+            keep = in_chunk & (rank_w < cap) & (cell_w < ncells)
+            D = _staging_store(dat_w, cell_loc, rank_w, keep, C_d, cap, ncl)
 
-        # slab fluid stack: padded-global plane x0 is global plane x0 - 1
-        Fp_c = Fpg[:, x0:x0 + nxc + 2].contiguous()
-        stks, combos, pres = fused_exchange_padded(Fp_c, D, grid, periodic, cfg, x0,
-                                                   nu, rho_f, max_occupied=N_w)
+        with annotate("yofc:exchange.kernel"):
+            # slab fluid stack: padded-global plane x0 is global plane x0 - 1
+            Fp_c = Fpg[:, x0:x0 + nxc + 2].contiguous()
+            stks, combos, pres = fused_exchange_padded(Fp_c, D, grid, periodic, cfg, x0,
+                                                       nu, rho_f, max_occupied=N_w)
 
-        # epilogue: dy rolls slab-local, dx into a halo-extended slab
-        ext = torch.zeros((8, nxc + 2, ny, nz), dtype=dtype, device=dev)
-        for ci, (dx, dy) in enumerate(combos):
-            v = stks[ci]
-            if dy:
-                v = torch.roll(v, dy, dims=2)
-            ext[:, 1 + dx:1 + dx + nxc] += v
-        # the interior slab and the two wrapped halo planes (non-periodic x
-        # edges receive zeros by the kernel's wall masks)
-        fields[:, x0:x0 + nxc] += ext[:, 1:-1]
-        fields[:, (x0 - 1) % nx] += ext[:, 0]
-        fields[:, (x0 + nxc) % nx] += ext[:, -1]
+            # epilogue: dy rolls slab-local, dx into a halo-extended slab
+            ext = torch.zeros((8, nxc + 2, ny, nz), dtype=dtype, device=dev)
+            for ci, (dx, dy) in enumerate(combos):
+                v = stks[ci]
+                if dy:
+                    v = torch.roll(v, dy, dims=2)
+                ext[:, 1 + dx:1 + dx + nxc] += v
+            # the interior slab and the two wrapped halo planes (non-periodic x
+            # edges receive zeros by the kernel's wall masks)
+            fields[:, x0:x0 + nxc] += ext[:, 1:-1]
+            fields[:, (x0 - 1) % nx] += ext[:, 0]
+            fields[:, (x0 + nxc) % nx] += ext[:, -1]
 
-        res_w = _unbin_rows(pres, torch.clamp(cell_loc, 0, ncl - 1), rank_w, keep, ncl, cfg)
-        res_s[idx_w] = torch.where(in_chunk[:, None], res_w, res_s[idx_w])
+            res_w = _unbin_rows(pres, torch.clamp(cell_loc, 0, ncl - 1), rank_w, keep, ncl,
+                                cfg)
+            res_s[idx_w] = torch.where(in_chunk[:, None], res_w, res_s[idx_w])
 
-    return _coupling_result(fields.reshape(8, ncells), res_s[inv_order],
-                            (slot_over + window_over).to(torch.int32), grid, cfg)
+    with annotate("yofc:exchange.kernel"):
+        return _coupling_result(fields.reshape(8, ncells), res_s[inv_order],
+                                (slot_over + window_over).to(torch.int32), grid, cfg)

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, host_tensor
 from . import coupling as cp
 from .coupling_planes import (
     DX_COMBOS,
@@ -248,8 +249,8 @@ def window_bins(pf: cp.ParticleFields, grid: Grid, cap: int, W: int,
     src_cols.append(base.to(dtype))
     gath = torch.cat(src_cols, dim=-1)[order]
     base_s = gath[:, -3:].to(torch.int32)
-    centre = torch.tensor(grid.origin, dtype=dtype, device=dev) + (
-        gath[:, -3:] + 0.5) * torch.tensor(grid.spacing, dtype=dtype, device=dev)
+    centre = host_tensor(grid.origin, dtype=dtype, device=dev) + (
+        gath[:, -3:] + 0.5) * host_tensor(grid.spacing, dtype=dtype, device=dev)
     rel_s = gath[:, 0:3] - centre
     dat = torch.cat([rel_s, gath[:, 3:-3]], dim=-1)
     hi, lo = _hi_lo(dat)
@@ -289,8 +290,9 @@ def gaussian_coupling_window(
     cfg: cp.CouplingConfig,
     prev_alpha=None,
 ) -> cp.CouplingResult:
-    """The window exchange: bin, run the window kernel, land the stacks,
-    unbin the per-slot results back to particle order."""
+    """The window exchange: bin (``yofc:exchange.bin``), run the window
+    kernel, land the stacks, unbin the per-slot results back to particle
+    order (``yofc:exchange.kernel``)."""
     if not cfg.lag_alpha:
         raise ValueError("exchange='window' requires lag_alpha=True")
     N = pf.pos.shape[0]
@@ -298,16 +300,18 @@ def gaussian_coupling_window(
     cap = cfg.slot_capacity
     ncells = grid.ncells
     W = window_size(N, nx, cfg.planes_window)
-    bins = window_bins(pf, grid, cap, W, with_angvel=cfg.use_torque)
+    with annotate("yofc:exchange.bin"):
+        bins = window_bins(pf, grid, cap, W, with_angvel=cfg.use_torque)
 
     F = _input_stack(fluid_u, grad_p, div_tau, ddt_u, curl_u, prev_alpha, cfg)
 
-    # every window is read up to its plane's count, for every
-    # cfg.window_dynamic (rows past the count carry y = -1 either way)
-    stks, combos, pres = window_exchange_padded(
-        pad_wrap_zero(F, periodic), bins.dat_win, grid, periodic, cfg, 0,
-        nu, rho_f, counts=bins.counts)
-    fields = _stack_epilogue(stks, combos).reshape(8, ncells)
-    res = _unbin_rows(pres, bins.cell_sorted, bins.rank, bins.keep, ncells,
-                      cfg)[bins.inv_order]
-    return _coupling_result(fields, res, bins.n_overflow, grid, cfg)
+    with annotate("yofc:exchange.kernel"):
+        # every window is read up to its plane's count, for every
+        # cfg.window_dynamic (rows past the count carry y = -1 either way)
+        stks, combos, pres = window_exchange_padded(
+            pad_wrap_zero(F, periodic), bins.dat_win, grid, periodic, cfg, 0,
+            nu, rho_f, counts=bins.counts)
+        fields = _stack_epilogue(stks, combos).reshape(8, ncells)
+        res = _unbin_rows(pres, bins.cell_sorted, bins.rank, bins.keep, ncells,
+                          cfg)[bins.inv_order]
+        return _coupling_result(fields, res, bins.n_overflow, grid, cfg)

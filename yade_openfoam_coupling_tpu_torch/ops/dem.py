@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, host_tensor
 from .grid import Grid
 
 
@@ -276,8 +277,8 @@ def allpairs_contact_forces(pos, vel, angvel, radius, active, grid: Grid, cfg: D
 
 
 def _min_image(dx: torch.Tensor, grid: Grid, periodic) -> torch.Tensor:
-    L = torch.tensor(grid.lengths, dtype=dx.dtype, device=dx.device)
-    per = torch.tensor(periodic, device=dx.device)
+    L = host_tensor(grid.lengths, dtype=dx.dtype, device=dx.device)
+    per = host_tensor(periodic, device=dx.device)
     wrapped = dx - L * torch.round(dx / L)
     return torch.where(per, wrapped, dx)
 
@@ -371,9 +372,9 @@ def cell_list_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
     _check_periodic_bins(dims, cfg)
     ncell = dims[0] * dims[1] * dims[2]
 
-    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=dev)
-    csz = torch.tensor(sizes, dtype=pos.dtype, device=dev)
-    nvec = torch.tensor(dims, dtype=torch.int32, device=dev)
+    origin = host_tensor(grid.origin, dtype=pos.dtype, device=dev)
+    csz = host_tensor(sizes, dtype=pos.dtype, device=dev)
+    nvec = host_tensor(dims, dtype=torch.int32, device=dev)
     ijk = torch.floor((pos - origin) / csz).to(torch.int32)
     ijk = torch.minimum(torch.clamp(ijk, min=0), nvec - 1)
     cell = ijk[:, 0] * (dims[1] * dims[2]) + ijk[:, 1] * dims[2] + ijk[:, 2]
@@ -389,11 +390,11 @@ def cell_list_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
         keep, order.to(torch.int32), N)
     table = table.reshape(ncell + 1, cap)
 
-    offs = torch.tensor(np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
-                                             indexing="ij"), -1).reshape(-1, 3),
-                        dtype=torch.int32, device=dev)
+    offs = host_tensor(np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
+                                            indexing="ij"), -1).reshape(-1, 3),
+                       dtype=torch.int32, device=dev)
     nb = ijk[:, None, :] + offs[None, :, :]          # (N, 27, 3)
-    per = torch.tensor(cfg.periodic, device=dev)
+    per = host_tensor(cfg.periodic, device=dev)
     nb_wrapped = torch.remainder(nb, nvec)
     in_rng = torch.all(((nb >= 0) & (nb < nvec)) | per, dim=-1)
     nb_cell = (nb_wrapped[..., 0] * (dims[1] * dims[2]) + nb_wrapped[..., 1] * dims[2]
@@ -469,9 +470,9 @@ def build_neighbor_list(pos, active, grid: Grid, cfg: DEMConfig, r_max: float,
     bx, by, bz = dims
     nbin = bx * by * bz
 
-    origin = torch.tensor(grid.origin, dtype=pos.dtype, device=dev)
-    csz = torch.tensor(sizes, dtype=pos.dtype, device=dev)
-    nvec = torch.tensor(dims, dtype=torch.int32, device=dev)
+    origin = host_tensor(grid.origin, dtype=pos.dtype, device=dev)
+    csz = host_tensor(sizes, dtype=pos.dtype, device=dev)
+    nvec = host_tensor(dims, dtype=torch.int32, device=dev)
     ijk = torch.floor((pos - origin) / csz).to(torch.int32)
     ijk = torch.minimum(torch.clamp(ijk, min=0), nvec - 1)
     bin_of = ijk[:, 0] * (by * bz) + ijk[:, 1] * bz + ijk[:, 2]
@@ -551,8 +552,8 @@ def wall_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
     cn = _normal_damping(p.kn, m, p.restitution)            # m_eff = m (wall)
     kt = p.kt_over_kn * p.kn
     ct = torch.sqrt(kt * m)
-    lo = torch.tensor(grid.origin, dtype=dt_, device=dev)
-    hi = torch.tensor(grid.upper, dtype=dt_, device=dev)
+    lo = host_tensor(grid.origin, dtype=dt_, device=dev)
+    hi = host_tensor(grid.upper, dtype=dt_, device=dev)
     zero = torch.zeros((), dtype=dt_, device=dev)
 
     f_total = torch.zeros_like(pos)
@@ -575,7 +576,8 @@ def wall_contact_forces(pos, vel, angvel, radius, active, grid: Grid,
         f_n_mag = torch.where(touching, f_n_mag, zero)
 
         e = torch.zeros((1, 3), dtype=dt_, device=dev)
-        e[0, axis] = 1.0
+        with annotate("yofc:sync.h2d"):
+            e[0, axis] = 1.0        # one element from the host: a blocking copy
         n_vec = e * sgn[:, None]
         c_vec = -radius[:, None] * n_vec
         v_surf = vel + _cross(angvel, c_vec)
@@ -661,7 +663,7 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
     izero = torch.zeros((), dtype=torch.int32, device=dev)
     m = particle_mass(radius, p.rho_p)
     inertia = particle_inertia(radius, p.rho_p)
-    g = torch.tensor(cfg.gravity, dtype=pos.dtype, device=dev)
+    g = host_tensor(cfg.gravity, dtype=pos.dtype, device=dev)
     vol = (4.0 / 3.0) * math.pi * radius ** 3
     f_grav = m[:, None] * g[None, :]
     if cfg.buoyancy:
@@ -669,9 +671,9 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
     zero = torch.zeros((), dtype=pos.dtype, device=dev)
     inv_m = torch.where(active, 1.0 / m, zero)[:, None]
     inv_I = torch.where(active, 1.0 / inertia, zero)[:, None]
-    lo = torch.tensor(grid.origin, dtype=pos.dtype, device=dev)
-    L = torch.tensor(grid.lengths, dtype=pos.dtype, device=dev)
-    per = torch.tensor(cfg.periodic, device=dev)
+    lo = host_tensor(grid.origin, dtype=pos.dtype, device=dev)
+    L = host_tensor(grid.lengths, dtype=pos.dtype, device=dev)
+    per = host_tensor(cfg.periodic, device=dev)
 
     def damp(f, v):
         # Cundall non-viscous damping (Yade NewtonIntegrator::damping)

@@ -12,11 +12,11 @@ runs the fused kernel B2 (`fused_stencil.laplacian_facegamma_fused`), as
 the JAX package runs its Pallas kernel there; smaller grids take the plain
 stencil (B2 also takes bfloat16, for the V-cycle under ``MGConfig.bf16``).
 CG's data-dependent exit is a host-side loop: the residual test reads one
-scalar per iteration (one device sync). With ``fixed_iters`` CG runs
-exactly that many iterations, the state frozen once converged, and reads
-nothing on the host. `solve_pressure` takes the masked-cell obstacles
-(``solid=``); `solve_helmholtz` solves the implicit momentum-diffusion
-systems.
+scalar per iteration (one device sync, in a ``yofc:sync.cg_exit`` span).
+With ``fixed_iters`` CG runs exactly that many iterations, the state
+frozen once converged, and reads nothing on the host. `solve_pressure`
+takes the masked-cell obstacles (``solid=``); `solve_helmholtz` solves
+the implicit momentum-diffusion systems.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, host_tensor, spanned
 from .fused_stencil import laplacian_facegamma_fused
 from .grid import DIRICHLET, NEUMANN, PERIODIC, FieldBC, Grid, pad_scalar
 from .stencil import Flux, laplacian_facegamma_padded
@@ -96,7 +97,11 @@ def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     and |r| held, so x is the while loop's whenever it converges within
     the budget. ``done`` and the live-iteration count stay device tensors;
     the count reports live iterations only."""
-    M = precond if precond is not None else (lambda r: r)
+    M_raw = precond if precond is not None else (lambda r: r)
+
+    def M(r):
+        with annotate("yofc:pressure.precond"):
+            return M_raw(r)
 
     def gdot(a, bb):
         return reduce_sum(torch.sum(a * bb))
@@ -153,15 +158,19 @@ def pcg(apply_A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
             it = it + live.to(torch.int32)
         return CGResult(x, it, rnorm, rnorm0)
 
+    def exit_read(flag):
+        with annotate("yofc:sync.cg_exit"):
+            return bool(flag)
+
     it = 0
-    done = bool(converged(rnorm0))
+    done = exit_read(converged(rnorm0))
     while it < maxiter and not done:
         it += 1
         x, r, p, rz, rnorm, breakdown = step(x, r, p, rz, None)
         diverging = rnorm > 4.0 * best
         best = torch.minimum(best, rnorm)
-        done = bool(converged(rnorm) | breakdown | diverging)
-    iters = torch.tensor(it, dtype=torch.int32, device=b.device)
+        done = exit_read(converged(rnorm) | breakdown | diverging)
+    iters = host_tensor(it, dtype=torch.int32, device=b.device)
     return CGResult(x, iters, rnorm, rnorm0)
 
 
@@ -293,13 +302,16 @@ def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
     else:
         raise ValueError(f"unknown MG smoother {cfg.smoother!r}")
 
+    names = [f"yofc:mg.L{lv}" for lv in range(levels)]
+
     def vcycle(lv, b):
-        x = smooth(lv, torch.zeros_like(b), b, cfg.pre_smooth)
-        if lv == levels - 1:
-            return smooth(lv, x, b, cfg.coarse_iters)
-        r = b - apply_lv(lv, x)
-        x = x + _prolong(vcycle(lv + 1, _restrict(r)))
-        return smooth(lv, x, b, cfg.post_smooth)
+        with annotate(names[lv]):
+            x = smooth(lv, torch.zeros_like(b), b, cfg.pre_smooth)
+            if lv == levels - 1:
+                return smooth(lv, x, b, cfg.coarse_iters)
+            r = b - apply_lv(lv, x)
+            x = x + _prolong(vcycle(lv + 1, _restrict(r)))
+            return smooth(lv, x, b, cfg.post_smooth)
 
     if cfg.bf16:
         return lambda r: vcycle(0, r.to(torch.bfloat16)).to(r.dtype)
@@ -364,8 +376,8 @@ def make_spectral_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
 
     dev = gamma_f[0].device
     gbar = [torch.mean(gamma_f[a]) for a in range(3)]
-    Qs = [torch.as_tensor(Q, device=dev) for Q, _ in bases]
-    lams = [torch.as_tensor(lam, device=dev) for _, lam in bases]
+    Qs = [host_tensor(Q, device=dev) for Q, _ in bases]
+    lams = [host_tensor(lam, device=dev) for _, lam in bases]
     lam = (gbar[0] * lams[0][:, None, None]
            + gbar[1] * lams[1][None, :, None]
            + gbar[2] * lams[2][None, None, :])
@@ -427,6 +439,7 @@ def solve_helmholtz(a_diag: torch.Tensor, gamma_f: Flux, rhs: torch.Tensor,
                maxiter=cfg.maxiter, fixed_iters=cfg.fixed_iters)
 
 
+@spanned("yofc:pressure")
 def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
                    grid: Grid, bc: FieldBC,
                    cfg: PressureSolverConfig = PressureSolverConfig(), *,
@@ -440,59 +453,63 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
     solve: gamma_f comes face-masked, so solid rows of the Laplacian are
     zero; they become a scaled identity -s p (s the interior diagonal
     magnitude), the RHS and p0 are zeroed there, the preconditioner acts
-    on the fluid subspace, and the nullspace mean runs over fluid cells."""
-    pad = pad if pad is not None else default_pad(bc)
-    if nullspace is None:
-        nullspace = not any(f.kind == DIRICHLET for pair in bc.faces for f in pair)
+    on the fluid subspace, and the nullspace mean runs over fluid cells.
+    The solve runs in a ``yofc:pressure`` span; everything before `pcg`
+    (the BC constant, the nullspace means, the preconditioner's build) in
+    ``yofc:pressure.setup``."""
+    with annotate("yofc:pressure.setup"):
+        pad = pad if pad is not None else default_pad(bc)
+        if nullspace is None:
+            nullspace = not any(f.kind == DIRICHLET for pair in bc.faces for f in pair)
 
-    fluid_m = None
-    if solid is not None:
-        fluid_m = solid.fluid
-        s_scale = sum(2.0 * torch.mean(gamma_f[a]) / grid.spacing[a] ** 2 for a in range(3))
-        rhs = rhs * fluid_m
-        p0 = p0 * fluid_m
+        fluid_m = None
+        if solid is not None:
+            fluid_m = solid.fluid
+            s_scale = sum(2.0 * torch.mean(gamma_f[a]) / grid.spacing[a] ** 2 for a in range(3))
+            rhs = rhs * fluid_m
+            p0 = p0 * fluid_m
 
-    # fold the affine (nonzero-Dirichlet) ghost constant into the RHS
-    bc_const = poisson_apply(torch.zeros_like(rhs), gamma_f, grid, pad,
-                             use_pallas=cfg.use_pallas)
-    rhs = rhs - bc_const
-    n_fluid = rhs.numel() - (solid.n_solid if solid is not None else 0)
-    ncells = reduce_sum(torch.tensor(float(n_fluid), dtype=rhs.dtype, device=rhs.device))
+        # fold the affine (nonzero-Dirichlet) ghost constant into the RHS
+        bc_const = poisson_apply(torch.zeros_like(rhs), gamma_f, grid, pad,
+                                 use_pallas=cfg.use_pallas)
+        rhs = rhs - bc_const
+        n_fluid = rhs.numel() - (solid.n_solid if solid is not None else 0)
+        ncells = reduce_sum(host_tensor(float(n_fluid), dtype=rhs.dtype, device=rhs.device))
 
-    def _mean(f):
-        """The mean over fluid cells, spread over fluid cells."""
-        if fluid_m is None:
-            return reduce_sum(torch.sum(f)) / ncells
-        return reduce_sum(torch.sum(f * fluid_m)) / ncells * fluid_m
+        def _mean(f):
+            """The mean over fluid cells, spread over fluid cells."""
+            if fluid_m is None:
+                return reduce_sum(torch.sum(f)) / ncells
+            return reduce_sum(torch.sum(f * fluid_m)) / ncells * fluid_m
 
-    if nullspace:
-        rhs = rhs - _mean(rhs)
-        p0 = p0 - _mean(p0)
+        if nullspace:
+            rhs = rhs - _mean(rhs)
+            p0 = p0 - _mean(p0)
 
-    def apply_A(p):
-        out = poisson_apply(p, gamma_f, grid, pad, use_pallas=cfg.use_pallas) - bc_const
-        return out if solid is None else out - s_scale * (solid.solid * p)
+        def apply_A(p):
+            out = poisson_apply(p, gamma_f, grid, pad, use_pallas=cfg.use_pallas) - bc_const
+            return out if solid is None else out - s_scale * (solid.solid * p)
 
-    mg_grid = Grid(tuple(rhs.shape), grid.spacing, grid.origin)
-    pbc = precond_bc if precond_bc is not None else bc.homogeneous()
-    if cfg.solver == "fftpcg":
-        M = make_spectral_preconditioner(gamma_f, mg_grid, pbc)
-        if M is None:       # no trigonometric basis for these BCs: V-cycle
-            M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg,
-                                       use_pallas=cfg.use_pallas)
-    elif cfg.solver == "mgpcg":
-        M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg, use_pallas=cfg.use_pallas)
-    elif cfg.solver == "pcg":
-        d = poisson_diag(gamma_f, mg_grid, pbc)
-        inv_diag = 1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d)
-        M = lambda r: inv_diag * r  # noqa: E731
-    else:
-        raise ValueError(f"unknown pressure solver {cfg.solver!r}")
-    if solid is not None:
-        # the unmasked preconditioner on the fluid subspace, the identity
-        # rows inverted exactly
-        M_fluid = M
-        M = lambda r: fluid_m * M_fluid(fluid_m * r) - (solid.solid * r) / s_scale  # noqa: E731
+        mg_grid = Grid(tuple(rhs.shape), grid.spacing, grid.origin)
+        pbc = precond_bc if precond_bc is not None else bc.homogeneous()
+        if cfg.solver == "fftpcg":
+            M = make_spectral_preconditioner(gamma_f, mg_grid, pbc)
+            if M is None:       # no trigonometric basis for these BCs: V-cycle
+                M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg,
+                                           use_pallas=cfg.use_pallas)
+        elif cfg.solver == "mgpcg":
+            M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg, use_pallas=cfg.use_pallas)
+        elif cfg.solver == "pcg":
+            d = poisson_diag(gamma_f, mg_grid, pbc)
+            inv_diag = 1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d)
+            M = lambda r: inv_diag * r  # noqa: E731
+        else:
+            raise ValueError(f"unknown pressure solver {cfg.solver!r}")
+        if solid is not None:
+            # the unmasked preconditioner on the fluid subspace, the identity
+            # rows inverted exactly
+            M_fluid = M
+            M = lambda r: fluid_m * M_fluid(fluid_m * r) - (solid.solid * r) / s_scale  # noqa: E731
 
     res = pcg(apply_A, rhs, p0, precond=M, reduce_sum=reduce_sum,
               tol=cfg.tol, atol=cfg.abs_tol, rel_tol=cfg.rel_tol,

@@ -3,14 +3,26 @@
 
 `trace` records a `torch.profiler` trace of a block (CPU and, when a card
 is present, CUDA activity) and exports it as a Chrome trace; `annotate`
-names a region in that timeline; `PhaseTimer` accumulates host-clock
-phase times, synchronising the device of a given tensor before it reads
-the clock, and prints them in the JAX package's format.
+names a region in that timeline, `spanned` a whole function, and
+`host_tensor` the copy of host data to a device; `PhaseTimer` accumulates
+host-clock phase times, synchronising the device of a given tensor before
+it reads the clock, and prints them in the JAX package's format.
+
+The coupled step names its stages with `annotate` (every name is
+``yofc:<stage>``; README lists them). A span is a `record_function` range
+in the profiler's session, so it shares the device trace's clock; with no
+profiler running `annotate` returns one shared null context and records
+nothing, so the spans cost the step nothing outside a trace. The names
+have the ``module:attribute`` form of `cfdbench`'s traced targets with no
+module behind them (``yofc`` imports nothing), so a benchmark metric names
+a span in its ``WRAPS``: the harness wraps nothing for it and keeps the
+span's ranges, labelled ``yofc.<stage>``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Dict
@@ -41,9 +53,38 @@ def trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+_NULL = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region in the profiler's timeline (`record_function`)."""
+    """A named region in the profiler's timeline (`record_function`) while
+    a profiler runs; otherwise one shared null context, which records
+    nothing and costs a check."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
     return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: the whole call of the function inside ``annotate(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def host_tensor(data, dtype=None, device=None) -> torch.Tensor:
+    """`torch.as_tensor(data, dtype, device)` of host data (a Python number
+    or sequence, a numpy array) inside a ``yofc:sync.h2d`` span: PyTorch
+    copies host data to a card with a blocking copy, which waits for the
+    card's stream. A tensor passes through `as_tensor` with no span."""
+    if isinstance(data, torch.Tensor):
+        return torch.as_tensor(data, dtype=dtype, device=device)
+    with annotate("yofc:sync.h2d"):
+        return torch.as_tensor(data, dtype=dtype, device=device)
 
 
 def _sync(block_on) -> None:
