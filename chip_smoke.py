@@ -70,7 +70,10 @@ channel), and drives through `initialize_state` and `make_scan_fn`:
     --small` as a subprocess;
 B2's bf16 entry is held bit for bit against the plain stencil at every
 level of the 128^3 V-cycle on which it runs and through one whole bf16
-V-cycle, and the `use_pallas` chunks (f32 and bf16 V-cycle) print the
+V-cycle; the float32 Jacobi V-cycle's kernels (`csrc/mg_vcycle.cu`) are
+held against their plain versions on the 256^3 channel, each at level 0
+and through one whole V-cycle of the 1M configuration (55 launches), and
+the 1M bench case must launch them; the `use_pallas` chunks (f32 and bf16 V-cycle) print the
 card's busy share over one pressure solve (`torch.profiler`). It
 then holds B1, B4 and B6 at slot capacities 9 and 16 against their plain
 versions on a crowded lattice, the 4-slab chunked planes exchange against
@@ -546,6 +549,125 @@ def bf16_vcycle_phase(device, card):
     print(f"bf16 V-cycle at {NX}^3: kernel path == plain path (torch.equal), {per_cycle} B2 "
           f"bf16 launches a cycle; {ms_kern:.3f} ms a cycle (plain stencil {ms_plain:.3f} ms) "
           f"[{card}]", flush=True)
+
+
+@contextlib.contextmanager
+def plain_mg(record=None):
+    """While active, `mg_fused`'s wrappers run their plain versions on CUDA
+    tensors too, each level's inverse diagonal built once (the V-cycle's
+    operations as plain PyTorch on the card); with ``record`` (a list), the
+    wrappers run as they are and append each call's bytes instead (its
+    inputs once and its output)."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+
+    diags = {}
+
+    def with_diag(level):
+        key = level.gamma_f[0].data_ptr()
+        if key not in diags:
+            diags[key] = pr.inverse_diag(level.gamma_f, level.grid, level.bc)
+        return level._replace(inv_diag=diags[key])
+
+    def counted(fn):
+        def run(level, *a, **kw):
+            out = fn(level, *a, **kw)
+            record.append(nbytes(*level.gamma_f, out, *(t for t in (*a, *kw.values())
+                                                        if isinstance(t, torch.Tensor))))
+            return out
+        run.launches = 0    # the wrapper counts its launches through the module's name
+        return run
+
+    names = ("jacobi", "residual_restrict", "coarse")
+    reals = {n: getattr(mg, n) for n in names}
+    for n in names:
+        plain = getattr(mg, n + "_plain")
+        setattr(mg, n, counted(reals[n]) if record is not None else
+                (lambda level, *a, _p=plain, **kw: _p(with_diag(level), *a, **kw)))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(mg, n, reals[n])
+
+
+def mg_vcycle_phase(device, card, n=256):
+    """The fused Jacobi V-cycle (csrc/mg_vcycle.cu) on the n^3 channel's
+    pressure operator (periodic x/y, zero-gradient z; face coefficients in
+    [0.5, 1.5)): each kernel at level 0 (the coarse one at 4^3) and one
+    whole V-cycle of the 1M configuration (4 + 4 sweeps, 20 coarse) against
+    their plain versions, with times (host-inclusive and device only),
+    the plain version's and the bound (bytes once at the HBM rate). The
+    V-cycle's launches counted (55 at 256^3). -> kernels-line entries."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+    from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
+
+    grid = Grid.cube(n, 1e-3 * n)
+    bc = FluidBCs.channel_z().p.homogeneous()
+    gen = torch.Generator(device=device).manual_seed(6)
+    gamma_f = tuple(0.5 + torch.rand(s, generator=gen, device=device)
+                    for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+    level = mg.MGLevel(gamma_f, grid, bc, pr.inverse_diag(gamma_f, grid, bc))
+    x, b = (torch.randn(grid.shape, generator=gen, device=device) for _ in range(2))
+    ec = torch.randn((n // 2,) * 3, generator=gen, device=device)
+    g4, grid4 = tuple(0.5 + torch.rand(s, generator=gen, device=device)
+                      for s in ((5, 4, 4), (4, 5, 4), (4, 4, 5))), Grid.cube(4, 1e-3 * n)
+    small = mg.MGLevel(g4, grid4, bc, pr.inverse_diag(g4, grid4, bc))
+    b4 = torch.randn((4, 4, 4), generator=gen, device=device)
+    cases = {
+        "mg_jacobi": (lambda: mg.jacobi(level, x, b, 0.8),
+                      lambda: mg.jacobi_plain(level, x, b, 0.8), (x, b, *gamma_f, x)),
+        "mg_jacobi_prolong": (lambda: mg.jacobi(level, x, b, 0.8, ec=ec),
+                              lambda: mg.jacobi_plain(level, x, b, 0.8, ec),
+                              (x, ec, b, *gamma_f, x)),
+        "mg_jacobi_zero": (lambda: mg.jacobi(level, None, b, 0.8),
+                           lambda: mg.jacobi_plain(level, None, b, 0.8), (b, *gamma_f, b)),
+        "mg_residual_restrict": (lambda: mg.residual_restrict(level, x, b),
+                                 lambda: mg.residual_restrict_plain(level, x, b),
+                                 (x, b, *gamma_f, ec)),
+        "mg_coarse": (lambda: mg.coarse(small, b4, 24, 0.8),
+                      lambda: mg.coarse_plain(small, b4, 24, 0.8), (b4, *small.gamma_f, b4)),
+    }
+    out = {}
+    for name, (kern_fn, plain_fn, arrays) in cases.items():
+        err = check_close(name, "out", kern_fn()[None], plain_fn()[None])
+        ms, dev_ms = kernel_times(kern_fn, 50)
+        plain_ms = cuda_ms(plain_fn, 10)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     **bound(nbytes(*arrays), 45 * arrays[-1].numel()), "library_ms": None}
+    del x, ec
+    M = pr.make_mg_preconditioner(gamma_f, grid, bc, pr.MGConfig(pre_smooth=4, post_smooth=4))
+    record = []
+    with plain_mg(record):
+        kern = M(b)
+    before = mg.launches()
+    kern = M(b)
+    per_cycle = mg.launches() - before
+    with plain_mg():
+        plain = M(b)
+        plain_ms = cuda_ms(lambda: M(b), 5)
+    err = check_close("mg_vcycle", "out", kern[None], plain[None])
+    ms, dev_ms = kernel_times(lambda: M(b), 20)
+    out["mg_vcycle"] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        **bound(sum(record), 45 * 9 * sum(n ** 3 // 8 ** k for k in range(7))),
+                        "library_ms": None}
+    expected = 9 * (pr.mg_levels_for(grid) - 1) + 1
+    if per_cycle != expected or len(record) != expected:
+        raise AssertionError(f"mg_vcycle at {n}^3: {per_cycle} launches a V-cycle "
+                             f"({len(record)} wrapper calls), {expected} expected")
+    for name, e in out.items():
+        where = f"{n}^3 channel" + (", 4^3" if name == "mg_coarse" else "")
+        print(f"kernel {name} ({where}): max_abs_err {e['max_abs_err']:.3e}; kernel "
+              f"{e['ms']:.4f} ms ({e['device_ms']:.4f} ms device only), plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}), bound / device {e['bound_ms'] / e['device_ms']:.3f} [{card}]",
+              flush=True)
+    print(f"mg_vcycle: {per_cycle} launches a {n}^3 V-cycle [{card}]", flush=True)
+    return out
 
 
 def solve_busy_share(solves, card, label):
@@ -1093,7 +1215,7 @@ def launch_counters():
     """Each kernel's launch counter: (wrapper, attribute)."""
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
-    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, rolls
+    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, mg_fused, rolls
     from yade_openfoam_coupling_tpu_torch.native import bindings as nb
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin
     lap = fused_stencil.laplacian_facegamma_fused
@@ -1104,6 +1226,9 @@ def launch_counters():
             "rolls_deposit": (rolls.distribute_rolls, "launches"),
             "laplacian": (lap, "launches"),
             "laplacian_bf16": (lap, "launches_bf16"),
+            "mg_jacobi": (mg_fused.jacobi, "launches"),
+            "mg_residual_restrict": (mg_fused.residual_restrict, "launches"),
+            "mg_coarse": (mg_fused.coarse, "launches"),
             "dynwin_staging": (proto_dynwin.stage_planes, "launches"),
             "meshtree_keys": (nb.morton_keys, "launches"),
             "meshtree_nearest": (nb.tree_nearest, "launches"),
@@ -1847,7 +1972,8 @@ def bench_1m_phase(device, card, fast):
     the first exchange of the final state against its plain version (B4
     on the first slab, B1 on the whole window), and for the default case
     the 8-slab exchange against the whole-grid one at 256^3. -> (the
-    kernel's launches in the 6 steps, its kernels-line entry)."""
+    kernel's launches in the 6 steps, its kernels-line entry, every launch
+    counter's count in the 6 steps)."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
@@ -1865,7 +1991,9 @@ def bench_1m_phase(device, card, fast):
                                                             cfg.coupling.planes_chunks)
     reset_launches()
     res, state = bench_1m.measure(cfg, state, device)
-    launches = read_launches()[kernel]
+    counts = read_launches()
+    launches = counts[kernel]
+    mg_launches = sum(counts[k] for k in ("mg_jacobi", "mg_residual_restrict", "mg_coarse"))
     n_steps = 2 * bench_1m.N_STEPS
     n = bench_1m.N_PARTICLES
     if res["overflows"] != [0, 0, 0]:
@@ -1876,13 +2004,16 @@ def bench_1m_phase(device, card, fast):
     if launches != per_step * n_steps:
         raise AssertionError(f"{label}: {kernel} launched {launches} times in {n_steps} "
                              f"steps ({per_step} a step expected)")
+    if (mg_launches > 0) == fast:
+        raise AssertionError(f"{label}: {mg_launches} fused V-cycle launches in {n_steps} steps "
+                             f"({'none' if fast else 'some'} expected)")
     bound_p = max(1e-5 * res["p_initial_residual_max"], 5e-6)
     print(f"{label} {n} particles 256^3: {res['value']:.4f} steps/s [{card}], set-up "
           f"{setup:.2f} s; p_iters {res['p_iters']}, last p residual "
           f"{res['p_final_residual']:.3e} against bench.py's bound {bound_p:.3e} "
           f"({'met' if res['p_converged'] else 'NOT met'}); peak device memory of the timed "
-          f"call {res['peak_mb']:.1f} MB; overflows 0, found {n}, {kernel} {launches} in "
-          f"{n_steps} steps", flush=True)
+          f"call {res['peak_mb']:.1f} MB; overflows 0, found {n}, {kernel} {launches} and the "
+          f"fused V-cycle's kernels {mg_launches} in {n_steps} steps", flush=True)
     with capture_first(mod, name) as seen:
         cd.exchange(state.fluid, state.particles, cfg.grid, cfg.bcs, cfg.transport,
                     cfg.coupling, state.dt)
@@ -1902,7 +2033,7 @@ def bench_1m_phase(device, card, fast):
     if not fast:
         chunked_phase(cfg, device, n=n, chunks=cfg.coupling.planes_chunks)
     torch.cuda.empty_cache()
-    return launches, entry
+    return launches, entry, counts
 
 
 def ladder_phase(device, card):
@@ -1989,6 +2120,7 @@ def main() -> int:
     kern["laplacian"] = laplacian_kernel_phase(device)
     kern["laplacian_bf16"] = laplacian_bf16_kernel_phase(device, smi)
     bf16_vcycle_phase(device, smi)
+    kern.update(mg_vcycle_phase(device, smi))
     kern["rolls_deposit_125"] = rolls_kernel_phase(
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_width=5)), 4)
     kern["rolls_deposit_slots"] = rolls_kernel_phase(
@@ -2125,7 +2257,13 @@ def main() -> int:
     # the bench scripts at full size: 1M/256^3 both ways, the ladder, the CLI's bench
     for fast in (False, True):
         key = ("window_exchange" if fast else "planes_fused") + "_256"
-        launches[key], kern[key] = bench_1m_phase(device, smi, fast)
+        launches[key], kern[key], counts = bench_1m_phase(device, smi, fast)
+        if not fast:
+            for name in ("mg_jacobi", "mg_residual_restrict", "mg_coarse"):
+                launches[name] = counts[name]
+            launches["mg_jacobi_prolong"] = launches["mg_jacobi_zero"] = counts["mg_jacobi"]
+            launches["mg_vcycle"] = sum(counts[k] for k in ("mg_jacobi", "mg_residual_restrict",
+                                                            "mg_coarse"))
     ladder_phase(device, smi)
     cli_bench_phase(smi)
     grid16 = bench_config(16).grid
@@ -2170,6 +2308,10 @@ def main() -> int:
                "planes_fused_256": ("planes_exchange.cu", JAX_OPS + "coupling_planes.py:508"),
                "window_exchange_256": ("window_exchange.cu",
                                        JAX_OPS + "coupling_window.py:162"),
+               # no Pallas kernel: the JAX package's V-cycle as XLA ops
+               **{k: ("mg_vcycle.cu", JAX_OPS + "pressure.py:300")
+                  for k in ("mg_jacobi", "mg_jacobi_prolong", "mg_jacobi_zero",
+                            "mg_residual_restrict", "mg_coarse", "mg_vcycle")},
                # no Pallas kernel: the JAX package's host C++ queries
                "meshtree_keys": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),
                "meshtree_nearest": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),

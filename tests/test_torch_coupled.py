@@ -4,6 +4,8 @@ with 2 correctors and fftpcg) on a 12^3 channel with ~300 lattice
 particles, run by both packages from the same numpy state; plus the
 regression test for the Verlet reference-position aliasing fault."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -65,6 +67,19 @@ def bench_config(nx=NX, rebuild_steps=2, **dem_kw):
     )
 
 
+def jax_equivalent(cfg):
+    """The JAX package's configuration that builds the port's Verlet lists:
+    with ``refined_neighbors`` the port refines a whole candidate row, the
+    JAX package only its ``max_neighbors`` largest ids, so its side takes
+    ``max_neighbors`` 27 x ``cell_capacity``, the whole row
+    (test_torch_dem.py holds the two lists equal)."""
+    d = cfg.dem
+    if not 0 < d.refined_neighbors < d.max_neighbors:
+        return cfg
+    return dataclasses.replace(cfg, dem=dataclasses.replace(
+        d, max_neighbors=27 * d.cell_capacity))
+
+
 def lattice(n, length, seed=0):
     """bench.py's jittered lattice."""
     rng = np.random.RandomState(seed)
@@ -90,7 +105,7 @@ def _initial_parts(cfg):
 def _both_initial(cfg):
     """Each package's initialize_state on the same numpy input state."""
     parts = _initial_parts(cfg)
-    ref = jcd.initialize_state(*parts, cfg, dt=5e-5)
+    ref = jcd.initialize_state(*parts, jax_equivalent(cfg), dt=5e-5)
     raw = _np_tree(SimState(*parts, t=np.float32(0), dt=np.float32(5e-5), step=np.int32(0)))
     t = state_from_numpy(raw, torch.device("cpu"))
     out = tcd.initialize_state(t.fluid, t.particles, t.turb, case_config_from(cfg), dt=5e-5)
@@ -118,7 +133,7 @@ def slice_runs():
     cfg = bench_config()
     s0, t0 = _both_initial(cfg)
     init = (_np_tree(s0), state_to_numpy(t0))
-    ref_state, ref_diags = jcd.make_scan_fn(cfg, 4)(s0)
+    ref_state, ref_diags = jcd.make_scan_fn(jax_equivalent(cfg), 4)(s0)
     out_state, out_diags = tcd.make_scan_fn(case_config_from(cfg), 4)(t0)
     return (_np_tree(ref_state), _np_tree(ref_diags), state_to_numpy(out_state),
             {k: v.numpy() for k, v in out_diags._asdict().items()}, init)
@@ -190,7 +205,7 @@ def test_verlet_reference_positions_are_not_aliased():
     assert int((drift > 0).sum()) == int(ps.active.sum())
     assert int(diags.n_contact_overflow[0]) == 0
     assert int(diags.n_contact_overflow[1]) > 0
-    _, ref_diags = jcd.make_scan_fn(cfg, 2)(s0)
+    _, ref_diags = jcd.make_scan_fn(jax_equivalent(cfg), 2)(s0)
     np.testing.assert_array_equal(diags.n_contact_overflow.numpy(),
                                   np.asarray(ref_diags.n_contact_overflow))
     # the initial state's reference positions are a copy as well

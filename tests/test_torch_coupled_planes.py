@@ -21,7 +21,8 @@ from yade_openfoam_coupling_tpu_torch.convert import (
 from yade_openfoam_coupling_tpu_torch.models import coupled as tcd
 from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as tcpp
 
-from test_torch_coupled import _both_initial, _close, _np_tree, bench_config
+from test_torch_coupled import (_both_initial, _close, _np_tree, bench_config,
+                                jax_equivalent)
 from test_torch_planes import (
     GRID,
     NU,
@@ -50,7 +51,7 @@ def slice_runs():
     cfg = planes_config()
     s0, t0 = _both_initial(cfg)
     init = (_np_tree(s0), state_to_numpy(t0))
-    ref_state, ref_diags = jcd.make_scan_fn(cfg, 4)(s0)
+    ref_state, ref_diags = jcd.make_scan_fn(jax_equivalent(cfg), 4)(s0)
     out_state, out_diags = tcd.make_scan_fn(case_config_from(cfg), 4)(t0)
     return (_np_tree(ref_state), _np_tree(ref_diags), state_to_numpy(out_state),
             {k: v.numpy() for k, v in out_diags._asdict().items()}, init)

@@ -895,6 +895,154 @@ def test_bf16_vcycle_kernel_equals_plain(cuda):
     assert bool(torch.isfinite(kern).all()) and torch.equal(kern, plain)
 
 
+MG_BCS = {
+    "periodic": FieldBC.periodic(),
+    "zero_gradient": FieldBC.box(NEUMANN),
+    "dirichlet": FieldBC.box(DIRICHLET),
+    "channel": FieldBC(((FaceBC("periodic"),) * 2, (FaceBC("periodic"),) * 2,
+                        (FaceBC(NEUMANN),) * 2)),
+}
+
+
+def _mg_level(n, bc, device, seed, h=1e-3):
+    """A seeded n^3 level of spacing h with face coefficients in [0.5, 1.5)
+    and 1/diag(A) for the plain versions."""
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+    grid = Grid.cube(n, h * n)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gamma_f = tuple(0.5 + torch.rand(s, generator=gen, device=device)
+                    for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1)))
+    return mg.MGLevel(gamma_f, grid, bc, pr.inverse_diag(gamma_f, grid, bc)), gen
+
+
+def _plain_mg_on_the_card(monkeypatch):
+    """Route `mg_fused`'s wrappers to their plain versions on CUDA tensors
+    too (each level's inverse diagonal built per call): the V-cycle's
+    operations as plain PyTorch on the card."""
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+
+    def with_diag(level):
+        return level._replace(inv_diag=pr.inverse_diag(level.gamma_f, level.grid, level.bc))
+
+    monkeypatch.setattr(mg, "jacobi",
+                        lambda lv, *a, **kw: mg.jacobi_plain(with_diag(lv), *a, **kw))
+    monkeypatch.setattr(mg, "residual_restrict",
+                        lambda lv, *a: mg.residual_restrict_plain(with_diag(lv), *a))
+    monkeypatch.setattr(mg, "coarse", lambda lv, *a: mg.coarse_plain(with_diag(lv), *a))
+
+
+@pytest.mark.cuda
+def test_mg_reciprocals_are_pytorchs(cuda):
+    """`mg_fused._params`'s 1/h and 1/h^2 are what PyTorch multiplies a CUDA
+    float32 tensor by when it divides it by h and by h^2 (Python floats), at
+    every level spacing of the 256^3 and 128^3 V-cycles."""
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    one = torch.ones(1, device=cuda)
+    for n in (256, 128):
+        h = 1e-3
+        while n >= 4:
+            _, fp = mg._params((n, n, n), (h, h, h), FieldBC.periodic(), 0.8, 0)
+            assert float((one / h).item()) == float(fp[0]), (n, h)
+            assert float((one / h ** 2).item()) == float(fp[3]), (n, h)
+            n, h = n // 2, 2.0 * h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", list(MG_BCS))
+@pytest.mark.parametrize("n0", [256, 128])
+def test_mg_kernels_match_plain(cuda, n0, bc):
+    """Each kernel of csrc/mg_vcycle.cu against its plain version at every
+    level of the n0^3 V-cycle (n0 down to 4), float32: the sweeps from x,
+    from zero, with the coarse correction and from zero with it, and the
+    coarse level's 24 sweeps in one launch (where it holds at most 4,096
+    cells) bit for bit (the same operations in the same order, the
+    reciprocals PyTorch's); the restricted residual from x and from zero
+    within 1e-5 of its scale (its 8 cells summed in another order)."""
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    n, h = n0, 1e-3
+    while n >= 4:
+        level, gen = _mg_level(n, MG_BCS[bc], cuda, seed=n, h=h)
+        x, b = (torch.randn(level.grid.shape, generator=gen, device=cuda) for _ in range(2))
+        before = mg.launches()
+        cases = [("sweep", mg.jacobi(level, x, b, 0.8), mg.jacobi_plain(level, x, b, 0.8)),
+                 ("sweep from zero", mg.jacobi(level, None, b, 0.8),
+                  mg.jacobi_plain(level, None, b, 0.8))]
+        if n > 4:
+            ec = torch.randn((n // 2,) * 3, generator=gen, device=cuda)
+            cases += [("sweep + prolong", mg.jacobi(level, x, b, 0.8, ec=ec),
+                       mg.jacobi_plain(level, x, b, 0.8, ec)),
+                      ("zero + prolong", mg.jacobi(level, None, b, 0.8, ec=ec),
+                       mg.jacobi_plain(level, None, b, 0.8, ec)),
+                      ("residual_restrict", mg.residual_restrict(level, x, b),
+                       mg.residual_restrict_plain(level, x, b)),
+                      ("restrict from zero", mg.residual_restrict(level, None, b),
+                       mg.residual_restrict_plain(level, None, b))]
+        if n ** 3 <= mg.COARSE_MAX_CELLS:
+            cases.append(("coarse", mg.coarse(level, b, 24, 0.8),
+                          mg.coarse_plain(level, b, 24, 0.8)))
+        torch.cuda.synchronize()
+        assert mg.launches() == before + len(cases)
+        for name, kern, plain in cases:
+            assert kern.shape == plain.shape, (n, name)
+            _assert_channels_close(kern[None], plain[None])
+            assert "restrict" in name or torch.equal(kern, plain), (n, name)
+        n, h = n // 2, 2.0 * h
+
+
+@pytest.mark.cuda
+def test_mg_kernels_refuse_what_they_do_not_take(cuda):
+    """On the card the wrappers raise for a coarse level past 4,096 cells,
+    an inhomogeneous Dirichlet face, a face array on another device and
+    float64, and launch nothing."""
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    level, gen = _mg_level(32, MG_BCS["channel"], cuda, seed=1)
+    b = torch.randn(level.grid.shape, generator=gen, device=cuda)
+    before = mg.launches()
+    with pytest.raises(ValueError, match="at most 4096"):
+        mg.coarse(level, b, 4, 0.8)
+    with pytest.raises(ValueError, match="homogeneous"):
+        mg.jacobi(level._replace(bc=FieldBC.box(DIRICHLET, 1.0)), None, b, 0.8)
+    with pytest.raises(ValueError, match="gamma_x"):
+        mg.jacobi(level._replace(gamma_f=(level.gamma_f[0].cpu(),) + level.gamma_f[1:]),
+                  None, b, 0.8)
+    with pytest.raises(ValueError, match="b must be"):
+        mg.residual_restrict(level, None, b.double())
+    assert mg.launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", ["channel", "dirichlet"])
+def test_mg_vcycle_and_solve_match_the_plain_path(cuda, bc, monkeypatch):
+    """At 64^3 (5 levels, the 1M configuration's 4 + 4 sweeps): one V-cycle
+    launches 9 x 4 + 1 = 37 kernels (55 at 256^3) and is within 1e-5 of
+    scale of the plain path's on the card; `solve_pressure` with mgpcg takes
+    the same CG iterations, x within 1e-5 of its scale."""
+    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
+    from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
+    level, gen = _mg_level(64, MG_BCS[bc], cuda, seed=3)
+    r = torch.randn(level.grid.shape, generator=gen, device=cuda)
+    mgc = pr.MGConfig(pre_smooth=4, post_smooth=4)
+    cfg = pr.PressureSolverConfig(solver="mgpcg", tol=1e-5, maxiter=40, mg=mgc)
+    args = (level.gamma_f, r, torch.zeros_like(r), level.grid, level.bc, cfg)
+    M = pr.make_mg_preconditioner(level.gamma_f, level.grid, level.bc, mgc)
+    M(r)
+    torch.cuda.synchronize()
+    before = (mg.launches(), fs.laplacian_facegamma_fused.launches)
+    kern = M(r)
+    torch.cuda.synchronize()
+    assert (mg.launches(), fs.laplacian_facegamma_fused.launches) == (before[0] + 37, before[1])
+    solved = pr.solve_pressure(*args)
+    _plain_mg_on_the_card(monkeypatch)
+    plain = pr.make_mg_preconditioner(level.gamma_f, level.grid, level.bc, mgc)(r)
+    solved_plain = pr.solve_pressure(*args)
+    torch.cuda.synchronize()
+    _assert_channels_close(kern[None], plain[None])
+    assert int(solved.iters) == int(solved_plain.iters) > 2
+    _assert_channels_close(solved.x[None], solved_plain.x[None])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("taps", [125, 28])
 @pytest.mark.parametrize("nz,row", [(16, "padded"), (14, "scrap")])

@@ -68,11 +68,17 @@ def _close(out, ref, rtol=1e-5):
 def test_build_neighbor_list_exact(cap, M, Mr):
     """Same candidates in the same slots and the same overflow count; the
     small capacities truncate bins and candidate rows, so the top_k
-    tie-break and the stable sort decide who survives."""
+    tie-break and the stable sort decide who survives. With
+    ``refined_neighbors`` the port refines the whole candidate row, the
+    JAX package its ``max_neighbors`` largest ids: the reference is the
+    JAX list built with ``max_neighbors`` 27 x ``cell_capacity``, which
+    keeps the whole row."""
     cfg = _cfg(cell_capacity=cap, max_neighbors=M, refined_neighbors=Mr)
     pos, _, _, _, active = _packing()
+    ref_cfg = cfg if Mr == 0 else _cfg(cell_capacity=cap, max_neighbors=27 * cap,
+                                       refined_neighbors=Mr)
     ref, ref_ov = dem.build_neighbor_list(jnp.asarray(pos), jnp.asarray(active),
-                                          GRID, cfg, R, return_overflow=True)
+                                          GRID, ref_cfg, R, return_overflow=True)
     out, out_ov = tdem.build_neighbor_list(
         torch.as_tensor(pos), torch.as_tensor(active), config_from(GRID),
         config_from(cfg), R, return_overflow=True)
@@ -80,6 +86,38 @@ def test_build_neighbor_list_exact(cap, M, Mr):
     assert int(out_ov) == int(ref_ov)
     if cap < 4:
         assert int(out_ov) > 0
+
+
+def test_refined_list_keeps_a_touching_pair_past_max_neighbors():
+    """A 1M-particle channel's geometry in small: a jittered lattice at
+    2.048 mm in hash bins of 2.03 mm (max_bins), so that every row holds
+    ~26 candidates against max_neighbors 8, and one particle moved to 0.39
+    mm of its +z neighbour. The JAX package keeps the 8 largest ids before
+    refining, a layer over in x, and drops the moved particle from its
+    neighbour's list; the port keeps the pair in both lists, and every
+    pair it keeps is within reach."""
+    grid = Grid.cube(16, 0.0164)
+    n, sp = 8, 2.048e-3
+    rng = np.random.RandomState(0)
+    g = np.stack(np.meshgrid(*[np.arange(n) * sp + 2e-4] * 3, indexing="ij"), -1).reshape(-1, 3)
+    pos = g + rng.uniform(-0.1 * sp, 0.1 * sp, g.shape)
+    a = (3 * n + 4) * n + 3
+    pos[a] = pos[a + 1] - np.array([2.4e-4, 3e-4, 5e-5])
+    pos = pos.astype(np.float32)
+    active = np.ones(len(pos), bool)
+    cfg = _cfg(max_bins=int((0.0164 / 2.03e-3) ** 3))
+    bin_size = dem.effective_bin_size(grid, cfg, R)
+    assert 2.0e-3 < bin_size < 2.048e-3
+    ref = np.asarray(dem.build_neighbor_list(jnp.asarray(pos), jnp.asarray(active), grid, cfg, R))
+    out = tdem.build_neighbor_list(torch.as_tensor(pos), torch.as_tensor(active),
+                                   config_from(grid), config_from(cfg), R).numpy()
+    assert a not in ref[a + 1]
+    assert a in out[a + 1] and a + 1 in out[a]
+    cutoff = 2 * R + 2 * cfg.list_margin_factor * (bin_size - 2 * R)
+    i, k = np.nonzero(out != len(pos))
+    d = pos[i] - pos[out[i, k]]
+    d[:, :2] -= 0.0164 * np.round(d[:, :2] / 0.0164)    # periodic in x and y
+    assert np.linalg.norm(d, axis=-1).max() <= cutoff
 
 
 def test_contact_forces_match():

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import closing_pairs
-from test_torch_coupled import _close, _np_tree, bench_config
+from test_torch_coupled import _close, _np_tree, bench_config, jax_equivalent
 from yade_openfoam_coupling_tpu.models import coupled as jcd
 from yade_openfoam_coupling_tpu.models.fields import (
     SimState,
@@ -272,11 +272,11 @@ def run_both(cfg, n_steps=4):
     pos, vel = closing_pairs(YADE_N, cfg.grid.lengths[0])
     parts = (make_fluid_state(cfg.grid), make_particle_state(pos=pos, vel=vel, radius=4e-4),
              make_turbulence_state(cfg.grid, k0=1e-6))
-    ref = jcd.initialize_state(*parts, cfg, dt=5e-5)
+    ref = jcd.initialize_state(*parts, jax_equivalent(cfg), dt=5e-5)
     raw = _np_tree(SimState(*parts, t=np.float32(0), dt=np.float32(5e-5), step=np.int32(0)))
     t = state_from_numpy(raw, torch.device("cpu"))
     out = tcd.initialize_state(t.fluid, t.particles, t.turb, case_config_from(cfg), dt=5e-5)
-    ref_s, ref_d = jcd.make_scan_fn(cfg, n_steps)(ref)
+    ref_s, ref_d = jcd.make_scan_fn(jax_equivalent(cfg), n_steps)(ref)
     out_s, out_d = tcd.make_scan_fn(case_config_from(cfg), n_steps)(out)
     return (_np_tree(ref_s), _np_tree(ref_d), state_to_numpy(out_s),
             {k: v.numpy() for k, v in out_d._asdict().items()})

@@ -39,6 +39,7 @@ ENTRY_POINTS = {
     "laplacian": {"yofc_laplacian": 8, "yofc_laplacian_bf16": 8},
     "dynwin_staging": {"yofc_dynwin_staging": 5},
     "meshtree": {"yofc_tree_keys": 5, "yofc_tree_nearest": 7, "yofc_tree_range": 8},
+    "mg_vcycle": {"yofc_mg_jacobi": 10, "yofc_mg_residual_restrict": 9, "yofc_mg_coarse": 8},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -448,11 +448,18 @@ def build_neighbor_list(pos, active, grid: Grid, cfg: DEMConfig, r_max: float,
     """(N, max_neighbors) int32 candidate indices (N = empty slot), and with
     ``return_overflow`` an int32 count of dropped candidates: particles
     beyond ``cell_capacity`` in their bin plus candidates truncated by the
-    ``max_neighbors`` (and ``refined_neighbors``) compaction.
+    ``max_neighbors`` (or ``refined_neighbors``) compaction.
 
     One path: a (nbin, 27 * cap) candidate table built from 27 rolls of the
     bin table, walked in bin-sorted order, compacted by top_k on the key
-    id + 2^21 so that the largest valid ids survive in descending order."""
+    id + 2^21 so that the largest valid ids survive in descending order.
+    With ``refined_neighbors`` (N, refined_neighbors) of the candidates
+    within reach before the next rebuild, the largest ids first, chosen
+    from the whole candidate row. The JAX package refines only the row's
+    ``max_neighbors`` largest ids, so that where a row holds more (27 bins
+    of a dense cloud), a touching pair of smaller id is dropped for
+    distant ones: its list equals this one where ``max_neighbors`` is 27 *
+    ``cell_capacity``."""
     N = pos.shape[0]
     cap = cfg.cell_capacity
     M = cfg.max_neighbors
@@ -506,25 +513,33 @@ def build_neighbor_list(pos, active, grid: Grid, cfg: DEMConfig, r_max: float,
     self_s = order.to(torch.int32)[:, None]
     cand_s = cand_rows[torch.clamp(bin_sorted, max=nbin - 1).to(torch.int64)]
     valid = (cand_s != N) & (cand_s != self_s) & act_s[:, None]
-    nbr_s = _compact(torch.where(valid, cand_s + _HIGH, 0), M, N)
-    trunc = torch.sum(torch.clamp(torch.sum(valid.to(torch.int32), dim=1) - M, min=0))
 
     if 0 < cfg.refined_neighbors < M:
         if not cfg.list_margin_factor > 0:
             raise ValueError("refined_neighbors needs the Verlet-skin margin "
                              "(list_margin_factor > 0)")
-        # keep only candidates reachable before the next rebuild
+        # keep only candidates reachable before the next rebuild, from the
+        # whole row, one coordinate at a time
         margin = cfg.list_margin_factor * (bin_size - 2.0 * r_max)
         cutoff = 2.0 * r_max + 2.0 * margin
         Mr = cfg.refined_neighbors
-        posx = torch.cat([pos, torch.zeros((1, 3), dtype=pos.dtype, device=dev)])
-        dxp = pos[order][:, None, :] - posx[nbr_s.to(torch.int64)]
-        dxp = _min_image(dxp, grid, cfg.periodic)
-        d2 = dxp[..., 0] * dxp[..., 0] + dxp[..., 1] * dxp[..., 1] + dxp[..., 2] * dxp[..., 2]
-        within = (nbr_s != N) & (d2 <= cutoff * cutoff)
-        nbr_s = _compact(torch.where(within, nbr_s + _HIGH, 0), Mr, N)
-        trunc = trunc + torch.sum(torch.clamp(
-            torch.sum(within.to(torch.int32), dim=1) - Mr, min=0))
+        pos_s = pos[order]
+        idx = cand_s.to(torch.int64)
+        L = host_tensor(grid.lengths, dtype=pos.dtype, device=dev)
+        per = host_tensor(cfg.periodic, device=dev)
+        d2 = None
+        for c in range(3):
+            posx = torch.cat([pos[:, c], torch.zeros((1,), dtype=pos.dtype, device=dev)])
+            d = pos_s[:, c:c + 1] - posx[idx]
+            d = torch.where(per[c], d - L[c] * torch.round(d / L[c]), d)   # `_min_image`
+            d2 = d * d if d2 is None else d2 + d * d
+        del idx
+        within = valid & (d2 <= cutoff * cutoff)
+        nbr_s = _compact(torch.where(within, cand_s + _HIGH, 0), Mr, N)
+        trunc = torch.sum(torch.clamp(torch.sum(within.to(torch.int32), dim=1) - Mr, min=0))
+    else:
+        nbr_s = _compact(torch.where(valid, cand_s + _HIGH, 0), M, N)
+        trunc = torch.sum(torch.clamp(torch.sum(valid.to(torch.int32), dim=1) - M, min=0))
 
     nbr = nbr_s[torch.argsort(order, stable=True)]
     if return_overflow:

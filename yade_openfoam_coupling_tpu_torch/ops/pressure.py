@@ -7,10 +7,14 @@ spectral one (``"fftpcg"``, the exact inverse of the mean-coefficient
 operator as six dense transform products, with the V-cycle where the BCs
 have no trigonometric basis).
 
-Under ``use_pallas`` every matvec on a grid whose sides are all at least 8
-runs the fused kernel B2 (`fused_stencil.laplacian_facegamma_fused`), as
-the JAX package runs its Pallas kernel there; smaller grids take the plain
-stencil (B2 also takes bfloat16, for the V-cycle under ``MGConfig.bf16``).
+The float32 Jacobi V-cycle runs as `mg_fused`'s kernels on the card
+(`csrc/mg_vcycle.cu`: a sweep, a residual-restrict and the coarsest level
+each one launch) and as their plain versions on the CPU. Under
+``use_pallas`` every other matvec on a grid whose sides are all at least 8
+(CG's, the Helmholtz solve's, the bf16 and Chebyshev V-cycles') runs the
+fused kernel B2 (`fused_stencil.laplacian_facegamma_fused`), as the JAX
+package runs its Pallas kernel there; smaller grids take the plain stencil
+(B2 also takes bfloat16, for the V-cycle under ``MGConfig.bf16``).
 CG's data-dependent exit is a host-side loop: the residual test reads one
 scalar per iteration (one device sync, in a ``yofc:sync.cg_exit`` span).
 With ``fixed_iters`` CG runs exactly that many iterations, the state
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import annotate, host_tensor, spanned
+from . import mg_fused as mg
 from .fused_stencil import laplacian_facegamma_fused
 from .grid import DIRICHLET, NEUMANN, PERIODIC, FieldBC, Grid, pad_scalar
 from .stencil import Flux, laplacian_facegamma_padded
@@ -190,20 +195,6 @@ class MGConfig:
     bf16: bool = False
 
 
-def _restrict(f: torch.Tensor) -> torch.Tensor:
-    """Full-weighting restriction: average 2x2x2 fine cells."""
-    nx, ny, nz = f.shape
-    return f.reshape(nx // 2, 2, ny // 2, 2, nz // 2, 2).mean(dim=(1, 3, 5))
-
-
-def _prolong(c: torch.Tensor) -> torch.Tensor:
-    """Piecewise-constant prolongation (each coarse cell -> 2x2x2 fine), as
-    one broadcast copy."""
-    nx, ny, nz = c.shape
-    return c[:, None, :, None, :, None].expand(nx, 2, ny, 2, nz, 2).reshape(
-        2 * nx, 2 * ny, 2 * nz)
-
-
 def _every_other(g: torch.Tensor, start: int, axis: int) -> torch.Tensor:
     idx = [slice(None)] * 3
     idx[axis] = slice(start, None, 2)
@@ -238,13 +229,27 @@ def mg_levels_for(grid: Grid, min_size: int = 4) -> int:
     return lv
 
 
+def inverse_diag(gamma_f: Flux, grid: Grid, bc: FieldBC) -> torch.Tensor:
+    """1 / `poisson_diag`, a zero diagonal (a cell with no open face)
+    taken as -1."""
+    d = poisson_diag(gamma_f, grid, bc)
+    return 1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d)
+
+
 def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
                            cfg: MGConfig = MGConfig(),
                            use_pallas: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """A V-cycle M^-1 r for the face-gamma Poisson operator (the role of
     OpenFOAM's GAMG): damped-Jacobi or Chebyshev smoothing on every level,
-    `coarse_iters` smoothing sweeps on the coarsest. Under ``cfg.bf16``
-    the level coefficients and inverse diagonals are bfloat16 and the cycle
+    `coarse_iters` smoothing sweeps on the coarsest.
+
+    The float32 Jacobi V-cycle under homogeneous BCs (every preconditioner
+    `solve_pressure` builds) runs as `mg_fused`'s three kernels on the card
+    (each sweep one launch, the residual's restriction and the
+    correction's prolongation fused into their neighbours, the coarsest
+    level one launch where it fits) and as their plain versions, the same
+    operations as the other route, on the CPU. Under ``cfg.bf16`` the
+    level coefficients and inverse diagonals are bfloat16 and the cycle
     runs on the residual cast to bfloat16, B2 included (its bfloat16
     entry); the correction returns in the residual's dtype."""
     levels = cfg.levels if cfg.levels > 0 else mg_levels_for(grid)
@@ -252,11 +257,15 @@ def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
     for _ in range(levels - 1):
         gammas.append(_coarsen_gamma_faces(gammas[-1]))
         grids.append(_coarsen_grid(grids[-1]))
+    names = [f"yofc:mg.L{lv}" for lv in range(levels)]
+    if (cfg.smoother == "jacobi" and not cfg.bf16 and gamma_f[0].dtype == torch.float32
+            and bc == bc.homogeneous()):
+        on_cpu = gamma_f[0].device.type == "cpu"
+        return _jacobi_vcycle([mg.MGLevel(g, gr, bc, inverse_diag(g, gr, bc) if on_cpu else None)
+                               for g, gr in zip(gammas, grids)], cfg, names)
+
     pad = default_pad(bc)
-    inv_diags = []
-    for g, gr in zip(gammas, grids):
-        d = poisson_diag(g, gr, bc)
-        inv_diags.append(1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d))
+    inv_diags = [inverse_diag(g, gr, bc) for g, gr in zip(gammas, grids)]
     if cfg.bf16:
         bf = torch.bfloat16
         gammas = [tuple(g.to(bf) for g in gf) for gf in gammas]
@@ -302,19 +311,50 @@ def make_mg_preconditioner(gamma_f: Flux, grid: Grid, bc: FieldBC,
     else:
         raise ValueError(f"unknown MG smoother {cfg.smoother!r}")
 
-    names = [f"yofc:mg.L{lv}" for lv in range(levels)]
-
     def vcycle(lv, b):
         with annotate(names[lv]):
             x = smooth(lv, torch.zeros_like(b), b, cfg.pre_smooth)
             if lv == levels - 1:
                 return smooth(lv, x, b, cfg.coarse_iters)
             r = b - apply_lv(lv, x)
-            x = x + _prolong(vcycle(lv + 1, _restrict(r)))
+            x = x + mg.prolong(vcycle(lv + 1, mg.restrict(r)))
             return smooth(lv, x, b, cfg.post_smooth)
 
     if cfg.bf16:
         return lambda r: vcycle(0, r.to(torch.bfloat16)).to(r.dtype)
+    return lambda r: vcycle(0, r)
+
+
+def _jacobi_vcycle(levels, cfg: MGConfig, names) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The Jacobi V-cycle on `mg_fused`'s wrappers, x None standing for the
+    zero start: the pre-smoothing sweeps (the first from zero), the
+    residual restricted, the coarse correction added inside the first
+    post-smoothing sweep; on the coarsest level all its sweeps, in one
+    launch where it fits."""
+    w = cfg.omega
+
+    def vcycle(lv, b):
+        level = levels[lv]
+        with annotate(names[lv]):
+            if lv == len(levels) - 1:
+                sweeps = cfg.pre_smooth + cfg.coarse_iters
+                if level.grid.ncells <= mg.COARSE_MAX_CELLS:
+                    return mg.coarse(level, b, sweeps, w)
+                x = None
+                for _ in range(sweeps):
+                    x = mg.jacobi(level, x, b, w)
+                return torch.zeros_like(b) if x is None else x
+            x = None
+            for _ in range(cfg.pre_smooth):
+                x = mg.jacobi(level, x, b, w)
+            ec = vcycle(lv + 1, mg.residual_restrict(level, x, b))
+            if cfg.post_smooth == 0:
+                return (torch.zeros_like(b) if x is None else x) + mg.prolong(ec)
+            x = mg.jacobi(level, x, b, w, ec=ec)
+            for _ in range(cfg.post_smooth - 1):
+                x = mg.jacobi(level, x, b, w)
+            return x
+
     return lambda r: vcycle(0, r)
 
 
@@ -500,8 +540,7 @@ def solve_pressure(gamma_f: Flux, rhs: torch.Tensor, p0: torch.Tensor,
         elif cfg.solver == "mgpcg":
             M = make_mg_preconditioner(gamma_f, mg_grid, pbc, cfg.mg, use_pallas=cfg.use_pallas)
         elif cfg.solver == "pcg":
-            d = poisson_diag(gamma_f, mg_grid, pbc)
-            inv_diag = 1.0 / torch.where(torch.abs(d) < 1e-30, -1.0, d)
+            inv_diag = inverse_diag(gamma_f, mg_grid, pbc)
             M = lambda r: inv_diag * r  # noqa: E731
         else:
             raise ValueError(f"unknown pressure solver {cfg.solver!r}")
