@@ -73,7 +73,11 @@ level of the 128^3 V-cycle on which it runs and through one whole bf16
 V-cycle; the float32 Jacobi V-cycle's kernels (`csrc/mg_vcycle.cu`) are
 held against their plain versions on the 256^3 channel, each at level 0
 and through one whole V-cycle of the 1M configuration (55 launches), and
-the 1M bench case must launch them; the `use_pallas` chunks (f32 and bf16 V-cycle) print the
+the 1M bench case must launch them; the fused DEM substep's kernels
+(`csrc/dem_substep.cu`) are held bit for bit against the plain substep
+loop at 10k particles in 128^3 and 1M in 256^3 with pushed contacts, wall
+contacts and wraps, and the window slice and both 1M bench cases must
+launch them 1 + 4 times a step; the `use_pallas` chunks (f32 and bf16 V-cycle) print the
 card's busy share over one pressure solve (`torch.profiler`). It
 then holds B1, B4 and B6 at slot capacities 9 and 16 against their plain
 versions on a crowded lattice, the 4-slab chunked planes exchange against
@@ -670,6 +674,139 @@ def mg_vcycle_phase(device, card, n=256):
     return out
 
 
+def dem_contact_case(nx, n, device, seed=0):
+    """bench.py's DEM (a frozen list of 4, carried contact force, 4
+    substeps, periodic x and y, walls on z) with n particles on its
+    jittered lattice in the nx^3 channel (h = 1 mm, r = 0.4 mm), 2% of
+    them pushed into contact with their next lattice site (5-30 um of
+    overlap, closing at 0.05 m/s), 0.5% overlapping each z wall by 5-30 um
+    and moving into it, 0.5% within 1 um of an x or y face and moving out;
+    every 97th inactive. Seeded velocities (1e-2 m/s), angular velocities
+    (1e-1 rad/s) and hydro force and torque, the force an (N, 3) view of
+    an (N, 4) array as the exchange gives it; the list and the first
+    contact force as the coupled step holds them. -> (args, kwargs) of
+    `dem.dem_substeps`."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import dem
+
+    cfg = bench_config(nx)
+    grid, dcfg, r = cfg.grid, cfg.dem, cfg.r_max
+    L = grid.lengths[0]
+    rng = np.random.RandomState(seed)
+    pos = lattice_positions(n, L, seed)
+    vel = 1e-2 * rng.randn(n, 3)
+    pairs = rng.choice(n - 1, n // 50, replace=False)
+    d = rng.randn(len(pairs), 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos[pairs + 1] = pos[pairs] + (2 * r - rng.uniform(5e-6, 3e-5, (len(pairs), 1))) * d
+    vel[pairs + 1] = vel[pairs] - 0.05 * d
+    rest = np.setdiff1d(np.arange(n), np.concatenate([pairs, pairs + 1]))
+    walls, seams = np.split(rng.choice(rest, 3 * (n // 200), replace=False), [2 * (n // 200)])
+    hi = np.arange(len(walls)) % 2 == 1
+    pos[walls, 2] = np.where(hi, L - r, r) + np.where(hi, 1, -1) * rng.uniform(5e-6, 3e-5,
+                                                                                len(walls))
+    vel[walls, 2] = np.where(hi, 0.05, -0.05)
+    axis, up = np.arange(len(seams)) % 2, np.arange(len(seams)) % 4 >= 2
+    pos[seams, axis] = np.where(up, L - 1e-6, 1e-6)
+    vel[seams, axis] = np.where(up, 0.08, -0.08)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    pos, vel = t(pos), t(vel)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ang = 1e-1 * torch.randn((n, 3), generator=gen, device=device)
+    radius = torch.full((n,), r, device=device)
+    active = torch.ones(n, dtype=torch.bool, device=device)
+    active[::97] = False
+    hydro = dem.DEMForces(1e-9 * torch.randn((n, 4), generator=gen, device=device)[:, :3],
+                          1e-13 * torch.randn((n, 3), generator=gen, device=device))
+    nbr = dem.build_neighbor_list(pos, active, grid, dcfg, r)
+    carried = dem.contact_forces(pos, vel, ang, radius, active, grid, dcfg, r, nbr)
+    dt = torch.full((), DT / cfg.n_dem_substeps, device=device)
+    return ((pos, vel, ang, radius, active, hydro, grid, dcfg, dt, cfg.n_dem_substeps, r),
+            {"nbr": nbr, "carried": carried})
+
+
+@contextlib.contextmanager
+def plain_dem():
+    """While active, `dem.dem_substeps` takes its plain loop on CUDA
+    tensors too."""
+    from yade_openfoam_coupling_tpu_torch.ops import dem_fused
+    real = dem_fused.on_route
+    dem_fused.on_route = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        dem_fused.on_route = real
+
+
+def dem_substep_phase(device, card, shapes=((128, 10_000), (256, 1_000_000))):
+    """The fused DEM substep (csrc/dem_substep.cu; no Pallas kernel is
+    replaced: the JAX package leaves `dem_substeps` to XLA) at the two
+    benchmark cells' shapes, 10k particles in 128^3 and 1M in 256^3, on
+    `dem_contact_case`: one `dem_substeps` call on its kernel route
+    against the plain loop on the card, torch.equal, 1 + 4 launches; times
+    (host-inclusive and device only) of `pack_drift`, one substep and the
+    whole call, the plain versions' and the plain loop's, and the bound
+    (bytes once at the HBM rate: a particle's state, hydro force and
+    torque in, its record out; a substep's record, list row and hydro
+    rows in, its record out; the partners' records come from L2). ->
+    kernels-line entries."""
+    import torch
+    from yade_openfoam_coupling_tpu_torch.ops import dem
+    from yade_openfoam_coupling_tpu_torch.ops import dem_fused as df
+
+    out = {}
+    for nx, n in shapes:
+        args, kw = dem_contact_case(nx, n, device)
+        pos, vel, ang, radius, active, hydro, grid, dcfg, dt, n_sub, r = args
+        before = df.launches()
+        kern = dem.dem_substeps(*args, **kw)
+        launched = df.launches() - before
+        with plain_dem():
+            plain = dem.dem_substeps(*args, **kw)
+        torch.cuda.synchronize()
+        label = f"dem_substeps at {nx}^3/{n}"
+        if launched != 1 + n_sub:
+            raise AssertionError(f"{label}: {launched} kernel launches, {1 + n_sub} expected")
+        for name, k, p in zip(("pos", "vel", "angvel", "n_overflow", "fc", "tc"), kern, plain):
+            if not torch.equal(k, p):
+                check_close(label, name, k[None], p[None])
+                raise AssertionError(f"{label}: {name} is not bit for bit the plain loop's "
+                                     f"(max abs err {float((k - p).abs().max()):.3e})")
+        touching = int((plain[4].abs().sum(1) > 0).sum())
+        carried = kw["carried"]
+        rec = df.pack_drift(pos, vel, ang, radius, active, carried, hydro, grid, dcfg, dt)
+        nbr = kw["nbr"]
+        io = {"pack_drift": n * (9 * 4 + 4 + 1 + 6 * 4 + 6 * 4 + 12 * 4),
+              "substep": n * (12 * 4 + 4 * nbr.shape[1] + 6 * 4 + 12 * 4)}
+        io["substeps"] = io["pack_drift"] + n_sub * io["substep"]
+        cases = {
+            "pack_drift": (lambda: df.pack_drift(pos, vel, ang, radius, active, carried, hydro,
+                                                 grid, dcfg, dt),
+                           lambda: df.pack_drift_plain(pos, vel, ang, radius, active, carried,
+                                                       hydro, grid, dcfg, dt)),
+            "substep": (lambda: df.substep(rec, nbr, hydro, grid, dcfg, dt),
+                        lambda: df.substep_plain(rec, nbr, hydro, grid, dcfg, dt)),
+            "substeps": (lambda: dem.dem_substeps(*args, **kw), None),
+        }
+        for name, (kern_fn, plain_fn) in cases.items():
+            key = f"dem_{name}_{nx}"
+            ms, dev_ms = kernel_times(kern_fn, 50)
+            if plain_fn is None:
+                with plain_dem():
+                    plain_ms = cuda_ms(kern_fn, 10)
+            else:
+                plain_ms = cuda_ms(plain_fn, 10)
+            out[key] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        **bound(io[name], 0), "library_ms": None}
+            e = out[key]
+            print(f"kernel {key} ({nx}^3, {n} particles, {touching} touching): kernel "
+                  f"{ms:.4f} ms ({dev_ms:.4f} ms device only), plain {plain_ms:.4f} ms, bound "
+                  f"{e['bound_ms']:.4f} ms ({e['bound_by']}), bound / device "
+                  f"{e['bound_ms'] / dev_ms:.3f} [{card}]", flush=True)
+        del args, kw, kern, plain, rec
+    return out
+
+
 def solve_busy_share(solves, card, label):
     """The card's busy share over one pressure solve: the longest `pcg`
     call that `solves` (a SolveCounter) saw, run again, its wall time
@@ -1215,7 +1352,7 @@ def launch_counters():
     """Each kernel's launch counter: (wrapper, attribute)."""
     from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
     from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
-    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil, mg_fused, rolls
+    from yade_openfoam_coupling_tpu_torch.ops import dem_fused, fused_stencil, mg_fused, rolls
     from yade_openfoam_coupling_tpu_torch.native import bindings as nb
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin
     lap = fused_stencil.laplacian_facegamma_fused
@@ -1229,10 +1366,20 @@ def launch_counters():
             "mg_jacobi": (mg_fused.jacobi, "launches"),
             "mg_residual_restrict": (mg_fused.residual_restrict, "launches"),
             "mg_coarse": (mg_fused.coarse, "launches"),
+            "dem_pack_drift": (dem_fused.pack_drift, "launches"),
+            "dem_substep": (dem_fused.substep, "launches"),
             "dynwin_staging": (proto_dynwin.stage_planes, "launches"),
             "meshtree_keys": (nb.morton_keys, "launches"),
             "meshtree_nearest": (nb.tree_nearest, "launches"),
             "meshtree_range": (nb.tree_range, "launches")}
+
+
+def dem_launches(launches, counts, n):
+    """The fused DEM kernels' launch counts of a run into the kernels-line
+    entries of the n^3 shape."""
+    launches[f"dem_pack_drift_{n}"] = counts["dem_pack_drift"]
+    launches[f"dem_substep_{n}"] = counts["dem_substep"]
+    launches[f"dem_substeps_{n}"] = counts["dem_pack_drift"] + counts["dem_substep"]
 
 
 def reset_launches():
@@ -2007,6 +2154,11 @@ def bench_1m_phase(device, card, fast):
     if (mg_launches > 0) == fast:
         raise AssertionError(f"{label}: {mg_launches} fused V-cycle launches in {n_steps} steps "
                              f"({'none' if fast else 'some'} expected)")
+    dem_runs = (counts["dem_pack_drift"], counts["dem_substep"])
+    if dem_runs != (n_steps, cfg.n_dem_substeps * n_steps):
+        raise AssertionError(f"{label}: the fused DEM kernels launched {dem_runs} times in "
+                             f"{n_steps} steps ({n_steps} and {cfg.n_dem_substeps} a step "
+                             f"expected)")
     bound_p = max(1e-5 * res["p_initial_residual_max"], 5e-6)
     print(f"{label} {n} particles 256^3: {res['value']:.4f} steps/s [{card}], set-up "
           f"{setup:.2f} s; p_iters {res['p_iters']}, last p residual "
@@ -2121,6 +2273,7 @@ def main() -> int:
     kern["laplacian_bf16"] = laplacian_bf16_kernel_phase(device, smi)
     bf16_vcycle_phase(device, smi)
     kern.update(mg_vcycle_phase(device, smi))
+    kern.update(dem_substep_phase(device, smi))
     kern["rolls_deposit_125"] = rolls_kernel_phase(
         device, cp.stencil_offsets(cp.CouplingConfig(stencil_width=5)), 4)
     kern["rolls_deposit_slots"] = rolls_kernel_phase(
@@ -2143,8 +2296,10 @@ def main() -> int:
     # each path's launches, counted from 0 just before it and read just after
     entries, launches = native_phase(device, smi)
     kern.update(entries)
-    runs, _ = slice_phase(cfg, device, smi, "window slice", ["window_exchange"])
+    runs, _ = slice_phase(cfg, device, smi, "window slice",
+                          {"window_exchange": 1, "dem_pack_drift": 1, "dem_substep": 4})
     launches["window_exchange"] = runs["window_exchange"]
+    dem_launches(launches, runs, 128)
     runs, _ = slice_phase(pcfg, device, smi, "planes slice", ["planes_fused"])
     launches["planes_fused"] = runs["planes_fused"]
     stage_phase(cfg, device, smi, "window slice")
@@ -2262,6 +2417,7 @@ def main() -> int:
             for name in ("mg_jacobi", "mg_residual_restrict", "mg_coarse"):
                 launches[name] = counts[name]
             launches["mg_jacobi_prolong"] = launches["mg_jacobi_zero"] = counts["mg_jacobi"]
+            dem_launches(launches, counts, 256)
             launches["mg_vcycle"] = sum(counts[k] for k in ("mg_jacobi", "mg_residual_restrict",
                                                             "mg_coarse"))
     ladder_phase(device, smi)
@@ -2312,6 +2468,9 @@ def main() -> int:
                **{k: ("mg_vcycle.cu", JAX_OPS + "pressure.py:300")
                   for k in ("mg_jacobi", "mg_jacobi_prolong", "mg_jacobi_zero",
                             "mg_residual_restrict", "mg_coarse", "mg_vcycle")},
+               # no Pallas kernel: the JAX package leaves dem_substeps to XLA
+               **{f"dem_{k}_{n}": ("dem_substep.cu", JAX_OPS + "dem.py:1061")
+                  for k in ("pack_drift", "substep", "substeps") for n in (128, 256)},
                # no Pallas kernel: the JAX package's host C++ queries
                "meshtree_keys": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),
                "meshtree_nearest": ("meshtree.cu", JAX_NATIVE + "meshtree.cpp:121"),

@@ -1331,3 +1331,146 @@ def test_every_stream_sync_lies_in_a_sync_span(cuda, kind, tmp_path):
                if not any(s <= e["ts"] and e["ts"] + e["dur"] <= t for s, t, _ in sync_spans)]
     assert syncs and escaped == [], sorted(set(escaped))
     assert len(syncs) == len(sync_spans), (len(syncs), len(sync_spans))
+
+
+def _dem_on_card(cloud_case, K, device):
+    """The CPU test's 16^3 cloud (every mechanism of the carried loop) on
+    the card, with a list of K slots a row: (args, kwargs) of
+    `dem.dem_substeps`, the hydro force an (N, 3) view of an (N, 4) array."""
+    import test_torch_dem_fused as t
+
+    from yade_openfoam_coupling_tpu_torch.ops import dem
+    cfg = dataclasses.replace(t.CFG, **t.CASES[cloud_case], max_neighbors=max(K, 8),
+                              refined_neighbors=K if K < 8 else 0)
+    pos, vel, ang, radius, active = (x.to(device) for x in t._cloud())
+    n = pos.shape[0]
+    nbr = dem.build_neighbor_list(pos, active, t.GRID, cfg, t.R)
+    gen = torch.Generator(device=device).manual_seed(3)
+    hydro = dem.DEMForces(1e-6 * torch.randn((n, 4), generator=gen, device=device)[:, :3],
+                          1e-10 * torch.randn((n, 3), generator=gen, device=device))
+    carried = dem.contact_forces(pos, vel, ang, radius, active, t.GRID, cfg, t.R, nbr)
+    dt = torch.full((), 5e-5, device=device)
+    return ((pos, vel, ang, radius, active, hydro, t.GRID, cfg, dt, 4, t.R),
+            {"nbr": nbr, "carried": carried})
+
+
+def _dem_kernel_and_plain(args, kw):
+    """One `dem_substeps` call on its kernel route (its launches counted)
+    and the plain loop's on the same inputs."""
+    from chip_smoke import plain_dem
+
+    from yade_openfoam_coupling_tpu_torch.ops import dem
+    from yade_openfoam_coupling_tpu_torch.ops import dem_fused as df
+    before = (df.pack_drift.launches, df.substep.launches)
+    kern = dem.dem_substeps(*args, **kw)
+    launched = (df.pack_drift.launches - before[0], df.substep.launches - before[1])
+    with plain_dem():
+        plain = dem.dem_substeps(*args, **kw)
+    torch.cuda.synchronize()
+    return kern, plain, launched
+
+
+def _assert_dem_equal(kern, plain):
+    for name, k, p in zip(("pos", "vel", "angvel", "n_overflow", "fc", "tc"), kern, plain):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        assert torch.equal(k, p), (name, float((k - p).abs().max()),
+                                   int((k != p).reshape(k.shape[0] if k.dim() else 1, -1)
+                                       .any(-1).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 8, 12])
+@pytest.mark.parametrize("case", ["plain physics", "buoyancy and damping"])
+def test_dem_fused_matches_plain_on_the_test_cloud(cuda, case, K):
+    """The fused DEM substep against the plain loop on the card, bit for
+    bit: the CPU test's cloud (pairs, seams, both z walls, wraps, inactive
+    particles, empty slots), lists of 4 (the cells'), 8 and 12 slots (the
+    generic row), buoyancy and Cundall damping off and on; 1 + 4
+    launches."""
+    kern, plain, launched = _dem_kernel_and_plain(*_dem_on_card(case, K, cuda))
+    assert launched == (1, 4)
+    _assert_dem_equal(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,n", [(128, 10_000), (256, 1_000_000)])
+def test_dem_fused_matches_plain_at_the_cells_shapes(cuda, nx, n):
+    """At both benchmark cells' shapes on the jittered lattice with pairs
+    pushed into contact, wall contacts and wraps (`chip_smoke.
+    dem_contact_case`): bit for bit with the plain loop, 1 + 4 launches,
+    and contacts in the compared state."""
+    from chip_smoke import dem_contact_case
+    args, kw = dem_contact_case(nx, n, cuda)
+    kern, plain, launched = _dem_kernel_and_plain(args, kw)
+    assert launched == (1, 4)
+    assert int((plain[4].abs().sum(1) > 0).sum()) > n // 100
+    _assert_dem_equal(kern, plain)
+
+
+@pytest.mark.cuda
+def test_dem_fused_wrappers_refuse_what_they_do_not_take(cuda):
+    """On the card the wrappers raise for float64, a tensor on another
+    device, a row of more than MAX_NEIGHBORS slots and a misshapen record
+    buffer, and launch nothing."""
+    from yade_openfoam_coupling_tpu_torch.ops import dem_fused as df
+    args, kw = _dem_on_card("plain physics", 4, cuda)
+    pos, vel, ang, radius, active, hydro, grid, cfg, dt = args[:9]
+    carried, nbr = kw["carried"], kw["nbr"]
+    rec = df.pack_drift(pos, vel, ang, radius, active, carried, hydro, grid, cfg, dt)
+    before = df.launches()
+    with pytest.raises(ValueError, match="vel must be"):
+        df.pack_drift(pos, vel.double(), ang, radius, active, carried, hydro, grid, cfg, dt)
+    with pytest.raises(ValueError, match="hydro torque must be"):
+        df.pack_drift(pos, vel, ang, radius, active, carried,
+                      hydro._replace(torque=hydro.torque.cpu()), grid, cfg, dt)
+    with pytest.raises(ValueError, match="nbr must be"):
+        df.substep(rec, nbr.cpu(), hydro, grid, cfg, dt)
+    with pytest.raises(ValueError, match="1 <= K"):
+        df.substep(rec, torch.zeros((nbr.shape[0], df.MAX_NEIGHBORS + 1), dtype=torch.int32,
+                                    device=cuda), hydro, grid, cfg, dt)
+    with pytest.raises(ValueError, match="records must be"):
+        df.substep(rec[:, :11].contiguous(), nbr, hydro, grid, cfg, dt, last=True)
+    with pytest.raises(ValueError, match="dt must be"):
+        df.substep(rec, nbr, hydro, grid, cfg, dt.cpu())
+    assert df.launches() == before
+
+
+@pytest.mark.cuda
+def test_dem_span_holds_the_fused_kernels_and_no_host_copy(cuda, tmp_path):
+    """One traced chunk of bench.py's configuration at 32^3 after a warm-up
+    one: each ``yofc:dem.substeps`` span launches the fused kernels 1 + 4
+    times and at most 8 device operations in all, and holds no
+    ``yofc:sync.h2d`` span and no stream synchronisation."""
+    import json
+
+    from yade_openfoam_coupling_tpu_torch import bench
+    from yade_openfoam_coupling_tpu_torch.models import coupled as cd
+    from yade_openfoam_coupling_tpu_torch.ops import dem_fused as df
+    from yade_openfoam_coupling_tpu_torch.utils import profiling
+
+    cfg = _sync_case("window_fftpcg")
+    steps = 2
+    run = cd.make_scan_fn(cfg, steps)
+    state, _ = run(bench.initial_state(cfg, 2000, cuda))
+    torch.cuda.synchronize()
+    before = (df.pack_drift.launches, df.substep.launches)
+    with profiling.trace(str(tmp_path)):
+        run(state)
+    assert (df.pack_drift.launches - before[0], df.substep.launches - before[1]) == (
+        steps, cfg.n_dem_substeps * steps)
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    dem_spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation" and e["name"] == "yofc:dem.substeps"]
+    assert len(dem_spans) == steps
+    for s0, s1 in dem_spans:
+        inside = [e for e in events if s0 <= e["ts"] and e["ts"] + e.get("dur", 0) <= s1]
+        names = [e["name"] for e in inside]
+        assert "yofc:sync.h2d" not in names
+        assert not any(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                             "cudaMemcpy") for n in names)
+        launches = [e for e in inside if e.get("cat") == "cuda_runtime" and (
+            e["name"].startswith("cudaLaunchKernel") or e["name"].startswith("cudaMemset")
+            or e["name"].startswith("cudaMemcpy"))]
+        kernels = [e for e in launches if e["name"].startswith("cudaLaunchKernel")]
+        assert len(kernels) >= 1 + cfg.n_dem_substeps and len(launches) <= 8, names

@@ -40,6 +40,7 @@ ENTRY_POINTS = {
     "dynwin_staging": {"yofc_dynwin_staging": 5},
     "meshtree": {"yofc_tree_keys": 5, "yofc_tree_nearest": 7, "yofc_tree_range": 8},
     "mg_vcycle": {"yofc_mg_jacobi": 10, "yofc_mg_residual_restrict": 9, "yofc_mg_coarse": 8},
+    "dem_substep": {"yofc_dem_pack_drift": 14, "yofc_dem_substep": 14},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -99,12 +99,18 @@ def particle_inertia(radius: torch.Tensor, rho_p: float) -> torch.Tensor:
     return 0.4 * particle_mass(radius, rho_p) * radius ** 2
 
 
-def _normal_damping(kn: float, m_eff: torch.Tensor, restitution: float) -> torch.Tensor:
-    """Dashpot coefficient from restitution e: c = -2 ln e sqrt(kn m)/sqrt(pi^2+ln^2 e)."""
+def damping_factor(restitution: float) -> float:
+    """2 beta of the dashpot law, beta = -ln e / sqrt(pi^2 + ln^2 e) for
+    the restitution e clamped to [1e-4, 0.999], a Python float."""
     e = max(min(restitution, 0.999), 1e-4)
     ln_e = np.log(e)
     beta = float(-ln_e / np.sqrt(np.pi ** 2 + ln_e ** 2))
-    return 2.0 * beta * torch.sqrt(kn * m_eff)
+    return 2.0 * beta
+
+
+def _normal_damping(kn: float, m_eff: torch.Tensor, restitution: float) -> torch.Tensor:
+    """Dashpot coefficient from restitution e: c = -2 ln e sqrt(kn m)/sqrt(pi^2+ln^2 e)."""
+    return damping_factor(restitution) * torch.sqrt(kn * m_eff)
 
 
 def _cross_cm(a, b):
@@ -636,6 +642,63 @@ class DEMForces(NamedTuple):
     torque: torch.Tensor   # (N,3)
 
 
+class Integration(NamedTuple):
+    """The substep loop's per-call constants: gravity (less buoyancy) as a
+    force, 1/m and 1/I (zero where inactive), and the box's lower corner,
+    lengths and periodic flags as (3,) tensors."""
+
+    f_grav: torch.Tensor
+    inv_m: torch.Tensor
+    inv_I: torch.Tensor
+    lo: torch.Tensor
+    L: torch.Tensor
+    per: torch.Tensor
+
+
+def integration(radius, active, grid: Grid, cfg: DEMConfig) -> Integration:
+    """`Integration` of the particles' radii and active flags (gravity and
+    the box as host copies)."""
+    p = cfg.params
+    dev = radius.device
+    m = particle_mass(radius, p.rho_p)
+    inertia = particle_inertia(radius, p.rho_p)
+    g = host_tensor(cfg.gravity, dtype=radius.dtype, device=dev)
+    vol = (4.0 / 3.0) * math.pi * radius ** 3
+    f_grav = m[:, None] * g[None, :]
+    if cfg.buoyancy:
+        f_grav = f_grav - cfg.rho_f * vol[:, None] * g[None, :]
+    zero = torch.zeros((), dtype=radius.dtype, device=dev)
+    inv_m = torch.where(active, 1.0 / m, zero)[:, None]
+    inv_I = torch.where(active, 1.0 / inertia, zero)[:, None]
+    lo = host_tensor(grid.origin, dtype=radius.dtype, device=dev)
+    L = host_tensor(grid.lengths, dtype=radius.dtype, device=dev)
+    per = host_tensor(cfg.periodic, device=dev)
+    return Integration(f_grav, inv_m, inv_I, lo, L, per)
+
+
+def _damp(f, v, d: float):
+    """Cundall non-viscous damping (Yade NewtonIntegrator::damping)."""
+    if d == 0.0:
+        return f
+    return f * (1.0 - d * torch.sign(f * v))
+
+
+def accel(k: Integration, cfg: DEMConfig, fc, tc, hydro: DEMForces, vel, angvel):
+    """Linear and angular acceleration under the contact force and torque
+    (fc, tc), gravity and the hydro force, damped against (vel, angvel)."""
+    return (_damp(fc + k.f_grav + hydro.force, vel, cfg.cundall_damping) * k.inv_m,
+            _damp(tc + hydro.torque, angvel, cfg.cundall_damping) * k.inv_I)
+
+
+def drift(k: Integration, pos, vel, angvel, a, aw, dt):
+    """The first half of a substep: half-kick, drift, periodic wrap. ->
+    (pos, vel_h, ang_h)."""
+    vel_h = vel + 0.5 * dt * a
+    ang_h = angvel + 0.5 * dt * aw
+    pos_n = pos + dt * vel_h
+    return torch.where(k.per, k.lo + _float_mod(pos_n - k.lo, k.L), pos_n), vel_h, ang_h
+
+
 def contact_forces(pos, vel, angvel, radius, active, grid, cfg: DEMConfig,
                    r_max: float, nbr=None):
     if nbr is not None:
@@ -671,42 +734,26 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
     chunk. ``dt_seq`` (n_sub,) gives every substep its own dt in place of
     ``dt_dem``: a zero-dt substep leaves pos/vel/angvel bit-identical, and
     also keeps the shear springs and the carried force of the last live
-    substep, as in the JAX package; no element is read on the host."""
-    p = cfg.params
+    substep, as in the JAX package; no element is read on the host.
+
+    A float32 state on a card with a list, the carried force of substep
+    mode and neither springs nor ``dt_seq`` (`dem_fused.on_route`) runs
+    the loop as `dem_fused`'s kernels: 1 + n_sub launches and no host
+    copy, the same numbers."""
+    from . import dem_fused
+    if dem_fused.on_route(pos, cfg, n_sub, nbr, dt_seq):
+        return dem_fused.substeps(pos, vel, angvel, radius, active, hydro, grid, cfg, dt_dem,
+                                  n_sub, r_max, nbr, carried)
     dev = pos.device
     N = pos.shape[0]
     izero = torch.zeros((), dtype=torch.int32, device=dev)
-    m = particle_mass(radius, p.rho_p)
-    inertia = particle_inertia(radius, p.rho_p)
-    g = host_tensor(cfg.gravity, dtype=pos.dtype, device=dev)
-    vol = (4.0 / 3.0) * math.pi * radius ** 3
-    f_grav = m[:, None] * g[None, :]
-    if cfg.buoyancy:
-        f_grav = f_grav - cfg.rho_f * vol[:, None] * g[None, :]
-    zero = torch.zeros((), dtype=pos.dtype, device=dev)
-    inv_m = torch.where(active, 1.0 / m, zero)[:, None]
-    inv_I = torch.where(active, 1.0 / inertia, zero)[:, None]
-    lo = host_tensor(grid.origin, dtype=pos.dtype, device=dev)
-    L = host_tensor(grid.lengths, dtype=pos.dtype, device=dev)
-    per = host_tensor(cfg.periodic, device=dev)
+    k = integration(radius, active, grid, cfg)
 
-    def damp(f, v):
-        # Cundall non-viscous damping (Yade NewtonIntegrator::damping)
-        d = cfg.cundall_damping
-        if d == 0.0:
-            return f
-        return f * (1.0 - d * torch.sign(f * v))
+    def accel_(fc, tc, vel_, ang_):
+        return accel(k, cfg, fc, tc, hydro, vel_, ang_)
 
-    def accel(fc, tc, vel_, ang_):
-        return (damp(fc + f_grav + hydro.force, vel_) * inv_m,
-                damp(tc + hydro.torque, ang_) * inv_I)
-
-    def drift(pos_, vel_, ang_, a, aw, dt_):
-        """The first half of a substep: half-kick, drift, periodic wrap."""
-        vel_h = vel_ + 0.5 * dt_ * a
-        ang_h = ang_ + 0.5 * dt_ * aw
-        pos_n = pos_ + dt_ * vel_h
-        return torch.where(per, lo + _float_mod(pos_n - lo, L), pos_n), vel_h, ang_h
+    def drift_(pos_, vel_, ang_, a, aw, dt_):
+        return drift(k, pos_, vel_, ang_, a, aw, dt_)
 
     use_list = cfg.neighbor == "cells"
     every = n_sub
@@ -739,7 +786,7 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
                                                   grid, cfg, xi_, dt_)
             fw, tw, xw2 = wall_contact_forces(pos_, vel_, ang_, radius, active, grid, cfg,
                                               xw_, dt_)
-            return (*accel(fc + fw, tc + tw, vel_, ang_), xi2, xw2)
+            return (*accel_(fc + fw, tc + tw, vel_, ang_), xi2, xw2)
 
         for c in range(n_chunks):
             nbr_c, ov = chunk_list(pos)
@@ -749,7 +796,7 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
             a, aw, xi, xw = eval_h(nbr_c, pos, vel, angvel, carry_shear(shear, keys),
                                    shear.xi_wall, 0.0)
             for dt_ in dts[c * every:(c + 1) * every]:
-                pos, vel_h, ang_h = drift(pos, vel, angvel, a, aw, dt_)
+                pos, vel_h, ang_h = drift_(pos, vel, angvel, a, aw, dt_)
                 a, aw, xi2, xw2 = eval_h(nbr_c, pos, vel_h, ang_h, xi, xw, dt_)
                 if masked:
                     # a zero-dt substep keeps the springs of the last live one
@@ -772,9 +819,9 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
             nbr_c, ov = chunk_list(pos)
             overflows.append(ov)
             # a0 from the carried contact force: no evaluation
-            a, aw = accel(fc, tc, vel, angvel)
+            a, aw = accel_(fc, tc, vel, angvel)
             for dt_ in dts[c * every:(c + 1) * every]:
-                pos, vel_h, ang_h = drift(pos, vel, angvel, a, aw, dt_)
+                pos, vel_h, ang_h = drift_(pos, vel, angvel, a, aw, dt_)
                 fc2, tc2 = contact_forces(pos, vel_h, ang_h, radius, active, grid, cfg,
                                           r_max, nbr_c)
                 if masked:
@@ -782,7 +829,7 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
                     live = dt_ > 0
                     fc2, tc2 = torch.where(live, fc2, fc), torch.where(live, tc2, tc)
                 fc, tc = fc2, tc2
-                a, aw = accel(fc, tc, vel_h, ang_h)
+                a, aw = accel_(fc, tc, vel_h, ang_h)
                 vel = vel_h + 0.5 * dt_ * a
                 angvel = ang_h + 0.5 * dt_ * aw
         return pos, vel, angvel, torch.stack(overflows).amax(), fc, tc
@@ -797,10 +844,10 @@ def dem_substeps(pos, vel, angvel, radius, active, hydro: DEMForces,
             return held if held is not None else contact_forces(
                 pos_, vel_, ang_, radius, active, grid, cfg, r_max, nbr_c)
 
-        a, aw = accel(*forces(pos, vel, angvel), vel, angvel)
+        a, aw = accel_(*forces(pos, vel, angvel), vel, angvel)
         for dt_ in dts[c * every:(c + 1) * every]:
-            pos, vel_h, ang_h = drift(pos, vel, angvel, a, aw, dt_)
-            a, aw = accel(*forces(pos, vel_h, ang_h), vel_h, ang_h)
+            pos, vel_h, ang_h = drift_(pos, vel, angvel, a, aw, dt_)
+            a, aw = accel_(*forces(pos, vel_h, ang_h), vel_h, ang_h)
             vel = vel_h + 0.5 * dt_ * a
             angvel = ang_h + 0.5 * dt_ * aw
     return pos, vel, angvel, torch.stack(overflows).amax()
