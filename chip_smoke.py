@@ -103,11 +103,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 
 from yade_openfoam_coupling_tpu_torch.bench import bench_config, lattice_positions, sync
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.scripts.exchange_timing import (
     cuda_ms,
     launch_split,
@@ -526,7 +528,6 @@ def bf16_vcycle_phase(device, card):
     torch.equal."""
     import torch
     from yade_openfoam_coupling_tpu_torch.models.piso import FluidBCs
-    from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
     from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
     from yade_openfoam_coupling_tpu_torch.ops.grid import Grid, pad_scalar
     from yade_openfoam_coupling_tpu_torch.ops.stencil import face_interp_all_padded
@@ -540,9 +541,9 @@ def bf16_vcycle_phase(device, card):
     cfg = pr.MGConfig(bf16=True)
     M_kern = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=True)
     M_plain = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=False)
-    before = fs.laplacian_facegamma_fused.launches_bf16
+    before = LAUNCHES["yofc_laplacian_bf16"]
     kern = M_kern(r)
-    per_cycle = fs.laplacian_facegamma_fused.launches_bf16 - before
+    per_cycle = LAUNCHES["yofc_laplacian_bf16"] - before
     plain = M_plain(r)
     if per_cycle == 0 or not bool(torch.isfinite(kern).all()) or not torch.equal(kern, plain):
         raise AssertionError(f"bf16 V-cycle: {per_cycle} bf16 launches; the kernel's "
@@ -580,7 +581,6 @@ def plain_mg(record=None):
             record.append(nbytes(*level.gamma_f, out, *(t for t in (*a, *kw.values())
                                                         if isinstance(t, torch.Tensor))))
             return out
-        run.launches = 0    # the wrapper counts its launches through the module's name
         return run
 
     names = ("jacobi", "residual_restrict", "coarse")
@@ -648,9 +648,9 @@ def mg_vcycle_phase(device, card, n=256):
     record = []
     with plain_mg(record):
         kern = M(b)
-    before = mg.launches()
+    LAUNCHES.clear()
     kern = M(b)
-    per_cycle = mg.launches() - before
+    per_cycle = sum(read_launches()[k] for k in MG_KERNELS)
     with plain_mg():
         plain = M(b)
         plain_ms = cuda_ms(lambda: M(b), 5)
@@ -758,9 +758,9 @@ def dem_substep_phase(device, card, shapes=((128, 10_000), (256, 1_000_000))):
     for nx, n in shapes:
         args, kw = dem_contact_case(nx, n, device)
         pos, vel, ang, radius, active, hydro, grid, dcfg, dt, n_sub, r = args
-        before = df.launches()
+        LAUNCHES.clear()
         kern = dem.dem_substeps(*args, **kw)
-        launched = df.launches() - before
+        launched = sum(read_launches()[k] for k in ("dem_pack_drift", "dem_substep"))
         with plain_dem():
             plain = dem.dem_substeps(*args, **kw)
         torch.cuda.synchronize()
@@ -985,14 +985,13 @@ def dynwin_script_phase(card):
     """B7's own path: `python -m ...scripts.proto_dynwin` on the card (its
     default device) through its `main`, counts from 0. -> launches."""
     from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
-    dw.stage_planes.launches = 0
+    LAUNCHES.clear()
     rc = dw.main([])
-    if rc != 0 or dw.stage_planes.launches < 2:
-        raise AssertionError(f"proto_dynwin exited with {rc} after "
-                             f"{dw.stage_planes.launches} launches")
-    print(f"proto_dynwin on the card: rc 0, {dw.stage_planes.launches} launches [{card}]",
-          flush=True)
-    return dw.stage_planes.launches
+    launches = read_launches()["dynwin_staging"]
+    if rc != 0 or launches < 2:
+        raise AssertionError(f"proto_dynwin exited with {rc} after {launches} launches")
+    print(f"proto_dynwin on the card: rc 0, {launches} launches [{card}]", flush=True)
+    return launches
 
 
 def native_phase(device, card):
@@ -1022,7 +1021,7 @@ def native_phase(device, card):
     radius = mt.RADIUS_CELLS * h
     pts = mt.cell_centres(NX, h)
     q = mt.particle_queries(N_PARTICLES, NX, h)
-    reset_launches()
+    LAUNCHES.clear()
     t0 = time.perf_counter()
     tree = nb.MeshTree(pts, device=device)
     qd = torch.as_tensor(q, device=device)
@@ -1032,7 +1031,8 @@ def native_phase(device, card):
     bins = nb.bin_points(qd, grid.origin, grid.spacing, grid.shape, device=device)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = {k: v for k, v in read_launches().items() if k.startswith("meshtree")}
+    counts = read_launches()
+    launches = {k: counts[k] for k in ("meshtree_keys", "meshtree_nearest", "meshtree_range")}
     if min(launches.values()) < 1:
         raise AssertionError(f"native path: a tree kernel did not launch: {launches}")
 
@@ -1193,7 +1193,7 @@ def cli_phase(card, solver, steps=20, extra=(), kernel=None, **case_kw):
     case = writer(Path(tempfile.mkdtemp(prefix="cli_case_")), **case_kw)
     label = " ".join([cmd, *extra] + [f"{k}={v}" for k, v in case_kw.items()])
     try:
-        reset_launches()
+        LAUNCHES.clear()
         t0 = time.perf_counter()
         rc = cli.main([cmd, str(case), *CLI_ARGS, *extra, "--max-steps", str(steps)])
         wall = time.perf_counter() - t0
@@ -1348,30 +1348,17 @@ class SolveCounter:
         return torch.stack(self.iters).cpu().numpy() if self.iters else np.zeros(0, int)
 
 
-def launch_counters():
-    """Each kernel's launch counter: (wrapper, attribute)."""
-    from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
-    from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
-    from yade_openfoam_coupling_tpu_torch.ops import dem_fused, fused_stencil, mg_fused, rolls
-    from yade_openfoam_coupling_tpu_torch.native import bindings as nb
-    from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin
-    lap = fused_stencil.laplacian_facegamma_fused
-    return {"window_exchange": (cw.window_exchange_padded, "launches"),
-            "planes_fused": (cpp.fused_exchange_padded, "launches"),
-            "planes_interp": (cpp.interp_planes_padded, "launches"),
-            "planes_deposit": (cpp.deposit_stacks, "launches"),
-            "rolls_deposit": (rolls.distribute_rolls, "launches"),
-            "laplacian": (lap, "launches"),
-            "laplacian_bf16": (lap, "launches_bf16"),
-            "mg_jacobi": (mg_fused.jacobi, "launches"),
-            "mg_residual_restrict": (mg_fused.residual_restrict, "launches"),
-            "mg_coarse": (mg_fused.coarse, "launches"),
-            "dem_pack_drift": (dem_fused.pack_drift, "launches"),
-            "dem_substep": (dem_fused.substep, "launches"),
-            "dynwin_staging": (proto_dynwin.stage_planes, "launches"),
-            "meshtree_keys": (nb.morton_keys, "launches"),
-            "meshtree_nearest": (nb.tree_nearest, "launches"),
-            "meshtree_range": (nb.tree_range, "launches")}
+MG_KERNELS = ("mg_jacobi", "mg_residual_restrict", "mg_coarse")
+
+
+def read_launches():
+    """`kernels.LAUNCHES` under the kernels line's names: each entry point
+    without its "yofc_" ("meshtree_" for the tree's "yofc_tree_"), and
+    "laplacian" of either dtype (its bf16 entry also as "laplacian_bf16")."""
+    counts = Counter({"meshtree_" + fn[10:] if fn.startswith("yofc_tree_") else fn[5:]: n
+                      for fn, n in LAUNCHES.items()})
+    counts["laplacian"] += counts["laplacian_bf16"]
+    return counts
 
 
 def dem_launches(launches, counts, n):
@@ -1380,15 +1367,6 @@ def dem_launches(launches, counts, n):
     launches[f"dem_pack_drift_{n}"] = counts["dem_pack_drift"]
     launches[f"dem_substep_{n}"] = counts["dem_substep"]
     launches[f"dem_substeps_{n}"] = counts["dem_pack_drift"] + counts["dem_substep"]
-
-
-def reset_launches():
-    for fn, attr in launch_counters().values():
-        setattr(fn, attr, 0)
-
-
-def read_launches():
-    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
 def labelled_checks(label, d):
@@ -1427,7 +1405,7 @@ def slice_phase(cfg, device, card, label, kernels, timed_runs=TIMED_RUNS, report
 
     per_step = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
     n = N_PARTICLES if n is None else n
-    reset_launches()
+    LAUNCHES.clear()
     t0 = time.perf_counter()
     state = initial_state(cfg, n, device, turb=turb, dt=dt)
     run = cd.make_scan_fn(cfg, STEPS_PER_RUN)
@@ -1598,7 +1576,7 @@ def settling_phase(device, card, steps=60):
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
 
     cfg, state, _ = settling_sphere(device=device)
-    reset_launches()
+    LAUNCHES.clear()
     t0 = time.perf_counter()
     state, diags = cd.make_scan_fn(cfg, steps)(state)
     torch.cuda.synchronize()
@@ -1715,8 +1693,7 @@ def require_launches(label, launches, per_step, n_steps):
 @contextlib.contextmanager
 def capture_first(module, name):
     """While active, `module.name` keeps its first call's arguments in the
-    yielded list. Its launch counter (incremented by the wrapped function
-    through the module's name) carries over both ways."""
+    yielded list."""
     orig = getattr(module, name)
     seen = []
 
@@ -1724,12 +1701,10 @@ def capture_first(module, name):
         if not seen:
             seen.append((a, kw))
         return orig(*a, **kw)
-    wrapper.launches = orig.launches
     setattr(module, name, wrapper)
     try:
         yield seen
     finally:
-        orig.launches = wrapper.launches
         setattr(module, name, orig)
 
 
@@ -1907,7 +1882,7 @@ def sharded_phase(cfg, device, card, backend="nccl"):
                 continue
             s = sh.to_sharded_state(state0, scfg, mesh)
             if not sharded_ms:
-                reset_launches()
+                LAUNCHES.clear()
                 (out, d), ms = timed(lambda: scan(s))
                 launches = read_launches()
             else:
@@ -1948,7 +1923,7 @@ def two_rank_run(mesh, cfg, n, n_steps):
     def record(*a, **kw):
         offs.append(int(a[5]))
         return orig(*a, **kw)
-    record.launches = 0
+    LAUNCHES.clear()
     cw.window_exchange_padded = record
     try:
         sync(mesh.device)
@@ -1960,7 +1935,7 @@ def two_rank_run(mesh, cfg, n, n_steps):
         cw.window_exchange_padded = orig
     g = sh.gather_state(out, cfg, mesh)
     view = host_view(g, d) if g is not None else None
-    return mesh.rank, sorted(set(offs)), record.launches, ms, view
+    return mesh.rank, sorted(set(offs)), read_launches()["window_exchange"], ms, view
 
 
 def two_rank_phase(cfg, card, ref10, device="cuda:0"):
@@ -2057,7 +2032,7 @@ def sharded_chunks_phase(cfg, device, card, backend="nccl"):
             s, d = cd.make_scan_fn(scfg, STEPS_PER_RUN)(state0)
             ref = host_view(s, d)
             del s
-            reset_launches()
+            LAUNCHES.clear()
             out, d = sh.make_sharded_scan(scfg, mesh, STEPS_PER_RUN)(
                 sh.to_sharded_state(state0, scfg, mesh))
             torch.cuda.synchronize()
@@ -2136,11 +2111,11 @@ def bench_1m_phase(device, card, fast):
     mod, name = (cw, "window_exchange_padded") if fast else (cpp, "fused_exchange_padded")
     kernel, per_step = ("window_exchange", 1) if fast else ("planes_fused",
                                                             cfg.coupling.planes_chunks)
-    reset_launches()
+    LAUNCHES.clear()
     res, state = bench_1m.measure(cfg, state, device)
     counts = read_launches()
     launches = counts[kernel]
-    mg_launches = sum(counts[k] for k in ("mg_jacobi", "mg_residual_restrict", "mg_coarse"))
+    mg_launches = sum(counts[k] for k in MG_KERNELS)
     n_steps = 2 * bench_1m.N_STEPS
     n = bench_1m.N_PARTICLES
     if res["overflows"] != [0, 0, 0]:
@@ -2199,7 +2174,7 @@ def ladder_phase(device, card):
     from yade_openfoam_coupling_tpu_torch.scripts import bench_ladder as bl
 
     for key, kernel in (("#2", "rolls_deposit"), ("#3", "window_exchange")):
-        reset_launches()
+        LAUNCHES.clear()
         res, state = bl.run_case(key, device, reps=1)
         launches = read_launches()[kernel]
         n_steps = 2 * bl.N_STEPS
@@ -2414,12 +2389,11 @@ def main() -> int:
         key = ("window_exchange" if fast else "planes_fused") + "_256"
         launches[key], kern[key], counts = bench_1m_phase(device, smi, fast)
         if not fast:
-            for name in ("mg_jacobi", "mg_residual_restrict", "mg_coarse"):
+            for name in MG_KERNELS:
                 launches[name] = counts[name]
             launches["mg_jacobi_prolong"] = launches["mg_jacobi_zero"] = counts["mg_jacobi"]
             dem_launches(launches, counts, 256)
-            launches["mg_vcycle"] = sum(counts[k] for k in ("mg_jacobi", "mg_residual_restrict",
-                                                            "mg_coarse"))
+            launches["mg_vcycle"] = sum(counts[k] for k in MG_KERNELS)
     ladder_phase(device, smi)
     cli_bench_phase(smi)
     grid16 = bench_config(16).grid

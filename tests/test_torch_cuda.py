@@ -7,11 +7,13 @@ machine without the JAX package's dependencies:
 Without a CUDA device every test here skips."""
 
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.ops import coupling as cp
 from yade_openfoam_coupling_tpu_torch.ops import coupling_planes as cpp
 from yade_openfoam_coupling_tpu_torch.ops import coupling_window as cw
@@ -34,6 +36,12 @@ from yade_openfoam_coupling_tpu_torch.native import bindings as nb
 from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as dw
 
 GRID = Grid.box((12, 10, 14), (0.012, 0.010, 0.014))
+
+
+def _launched(before: Counter) -> dict:
+    """The launches since ``before`` (a copy of `kernels.LAUNCHES`), by
+    entry point."""
+    return dict(LAUNCHES - before)
 
 
 @pytest.fixture
@@ -97,10 +105,10 @@ def test_window_kernel_matches_plain(cuda, shape, periodic, extras):
     Fp, bins = _window_case(periodic, cfg, cuda, seed=21)
     args = (Fp, bins.dat_win, GRID, periodic, cfg, 0, 1e-6, 1000.0)
     plain = cw.window_exchange_padded_reference(*args, counts=bins.counts)
-    before = cw.window_exchange_padded.launches
+    before = Counter(LAUNCHES)
     kern = cw.window_exchange_padded(*args, counts=bins.counts)
     torch.cuda.synchronize()
-    assert cw.window_exchange_padded.launches == before + 1
+    assert _launched(before) == {"yofc_window_exchange": 1}
     assert kern[1] == plain[1]
     assert kern[2].shape[0] == (7 if extras else 4)
     for o, r in ((kern[0], plain[0]), (kern[2], plain[2])):
@@ -165,10 +173,10 @@ def test_planes_fused_kernel_matches_plain(cuda, periodic, extras, slab):
     Fp, D, x0 = _planes_case(periodic, cfg, cuda, seed=31, slab=slab)
     args = (Fp, D, GRID, periodic, cfg, x0, 1e-6, 1000.0)
     plain = cpp.fused_exchange_padded_reference(*args)
-    before = cpp.fused_exchange_padded.launches
+    before = Counter(LAUNCHES)
     kern = cpp.fused_exchange_padded(*args)
     torch.cuda.synchronize()
-    assert cpp.fused_exchange_padded.launches == before + 1
+    assert _launched(before) == {"yofc_planes_fused": 1}
     assert kern[1] == plain[1]
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
     _assert_channels_close(kern[2], plain[2])
@@ -255,10 +263,10 @@ def test_planes_interp_and_deposit_kernels_match_plain(cuda, periodic, extras, s
     nxl = Fp.shape[1] - 2
     args = (Fp, D, GRID, periodic, cfg, x0)
     G_p, n_p = cpp.interp_planes_padded_reference(*args)
-    before = cpp.interp_planes_padded.launches
+    before = Counter(LAUNCHES)
     G_k, n_k = cpp.interp_planes_padded(*args)
     torch.cuda.synchronize()
-    assert cpp.interp_planes_padded.launches == before + 1
+    assert _launched(before) == {"yofc_planes_interp": 1}
     _assert_channels_close(G_k, G_p)
     _assert_channels_close(n_k[None], n_p[None])
 
@@ -267,10 +275,10 @@ def test_planes_interp_and_deposit_kernels_match_plain(cuda, periodic, extras, s
     Vn = (V * inv[None]).contiguous()
     dargs = (Vn, D, nxl, GRID, periodic, cfg, x0)
     plain = cpp.deposit_stacks_reference(*dargs)
-    before = cpp.deposit_stacks.launches
+    before = Counter(LAUNCHES)
     kern = cpp.deposit_stacks(*dargs)
     torch.cuda.synchronize()
-    assert cpp.deposit_stacks.launches == before + 1
+    assert _launched(before) == {"yofc_planes_deposit": 1}
     assert kern[1] == plain[1]
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
 
@@ -347,10 +355,10 @@ def test_window_kernel_edge_cases(cuda, periodic, extras, counts_mode):
     Fp = _fluid_stack(GRID, periodic, cfg, cuda, seed=52)
     args = (Fp, bins.dat_win, GRID, periodic, cfg, 0, 1e-6, 1000.0)
     plain = cw.window_exchange_padded_reference(*args, **kw)
-    before = cw.window_exchange_padded.launches
+    before = Counter(LAUNCHES)
     kern = cw.window_exchange_padded(*args, **kw)
     torch.cuda.synchronize()
-    assert cw.window_exchange_padded.launches == before + 1
+    assert _launched(before) == {"yofc_window_exchange": 1}
     assert kern[1] == plain[1]
     for o, r in ((kern[0], plain[0]), (kern[2], plain[2])):
         _assert_channels_close(o.reshape(o.shape[0] * o.shape[1], -1),
@@ -385,11 +393,11 @@ def test_planes_fused_kernel_edge_cases(cuda, periodic, extras, slab, bounded):
         assert int(bins.n_overflow) >= 2
     args = (Fp, bins.D, GRID, periodic, cfg, x0, 1e-6, 1000.0)
     plain = cpp.fused_exchange_padded_reference(*args)
-    before = cpp.fused_exchange_padded.launches
+    before = Counter(LAUNCHES)
     kern = cpp.fused_exchange_padded(
         *args, max_occupied=pf.pos.shape[0] if bounded else None)
     torch.cuda.synchronize()
-    assert cpp.fused_exchange_padded.launches == before + 1
+    assert _launched(before) == {"yofc_planes_fused": 1}
     assert kern[1] == plain[1]
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
     _assert_channels_close(kern[2], plain[2])
@@ -512,10 +520,10 @@ def test_planes_deposit_kernel_edge_cases(cuda, periodic, slab, bounded):
     ncl = nxl * GRID.shape[1] * GRID.shape[2]
     args = (_seeded_V(4, ncl, cuda, 64), D, nxl, GRID, periodic, cfg, x0)
     plain = cpp.deposit_stacks_reference(*args)
-    before = cpp.deposit_stacks.launches
+    before = Counter(LAUNCHES)
     kern = cpp.deposit_stacks(*args, max_occupied=pf.pos.shape[0] if bounded else None)
     torch.cuda.synchronize()
-    assert cpp.deposit_stacks.launches == before + 1
+    assert _launched(before) == {"yofc_planes_deposit": 1}
     assert kern[1] == plain[1]
     _assert_channels_close(kern[0].reshape(24, -1), plain[0].reshape(24, -1))
 
@@ -624,10 +632,10 @@ def test_rolls_kernel_matches_plain(cuda, offsets, C):
     buf = torch.randn((S * C, ncells + 1), generator=gen, device=cuda)
     bufT = buf[:, :ncells].view((S, C) + shape)
     plain = rolls.distribute_rolls_reference(bufT, offsets)
-    before = rolls.distribute_rolls.launches
+    before = Counter(LAUNCHES)
     kern = rolls.distribute_rolls(bufT, offsets)
     torch.cuda.synchronize()
-    assert rolls.distribute_rolls.launches == before + 1
+    assert _launched(before) == {"yofc_rolls_deposit": 1}
     assert torch.equal(kern, plain)
     with pytest.raises(ValueError, match="strided"):
         rolls.distribute_rolls(bufT.transpose(3, 4), offsets)
@@ -664,10 +672,10 @@ def test_rolls_kernel_layouts(cuda, name, nz, row):
     # one plane alone has no stride to read
     assert rolls._plane_stride(bufT, offsets) == (width if S * C > 1 else ncells)
     plain = rolls.distribute_rolls_reference(bufT, offsets)
-    before = rolls.distribute_rolls.launches
+    before = Counter(LAUNCHES)
     kern = rolls.distribute_rolls(bufT, offsets)
     torch.cuda.synchronize()
-    assert rolls.distribute_rolls.launches == before + 1
+    assert _launched(before) == {"yofc_rolls_deposit": 1}
     assert torch.equal(kern, plain)
 
 
@@ -689,10 +697,10 @@ def test_laplacian_kernel_matches_plain(cuda, bc):
     gamma_f = face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN)))
     pp = pad_scalar(p, bc)
     plain = laplacian_facegamma_padded(gamma_f, pp, grid)
-    before = fs.laplacian_facegamma_fused.launches
+    before = Counter(LAUNCHES)
     kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
     torch.cuda.synchronize()
-    assert fs.laplacian_facegamma_fused.launches == before + 1
+    assert _launched(before) == {"yofc_laplacian": 1}
     _assert_channels_close(kern[None], plain[None])
     with pytest.raises(ValueError, match="gamma_y"):
         fs.laplacian_facegamma_fused((gamma_f[0], gamma_f[1][:, :-1], gamma_f[2]), pp, grid)
@@ -720,11 +728,11 @@ def test_dynwin_kernel_matches_plain(cuda, shape):
         nch = np.ceil(counts / w_chunk).astype(np.int32)
     dat, nch = torch.as_tensor(dat, device=cuda), torch.as_tensor(nch, device=cuda)
     plain = dw.stage_planes_reference(dat, nch, ny, nz, w_chunk, True)
-    before = dw.stage_planes.launches
+    before = Counter(LAUNCHES)
     dyn = dw.stage_planes(dat, nch, ny, nz, w_chunk, True)
     static = dw.stage_planes(dat, nch, ny, nz, w_chunk, False)
     torch.cuda.synchronize()
-    assert dw.stage_planes.launches == before + 2
+    assert _launched(before) == {"yofc_dynwin_staging": 2}
     assert torch.equal(dyn, static)
     live = plain.reshape(plain.shape[0], -1).abs().amax(-1) > 0
     _assert_channels_close(dyn.reshape(dyn.shape[0], -1)[live],
@@ -774,12 +782,12 @@ def test_dynwin_kernel_edge_cases(cuda, case):
     dat, nch, ny, nz, w_chunk = _dynwin_case(case)
     dat, nch = torch.as_tensor(dat, device=cuda), torch.as_tensor(nch, device=cuda)
     args = (dat, nch, ny, nz, w_chunk)
-    before = dw.stage_planes.launches
+    before = Counter(LAUNCHES)
     dyn = dw.stage_planes(*args, True)
     static = dw.stage_planes(*args, False)
     again = dw.stage_planes(*args, True)
     torch.cuda.synchronize()
-    assert dw.stage_planes.launches == before + 3
+    assert _launched(before) == {"yofc_dynwin_staging": 3}
     assert torch.equal(dyn, static) and torch.equal(dyn, again)
     plain = dw.stage_planes_reference(*args, True)
     assert torch.equal(plain, dw.stage_planes_reference(*args, False))
@@ -797,8 +805,8 @@ def test_laplacian_bf16_kernel_matches_plain(cuda, shape):
     tensors (each operation rounded to bf16 as PyTorch rounds it): bit for
     bit, or at most 1 bf16 ulp of the output's scale, at the V-cycle's
     fine-level shapes and an odd one, with periodic x, Neumann y and
-    nonzero-Dirichlet z ghosts; both dtypes count in `launches`, the bf16
-    ones also in `launches_bf16`."""
+    nonzero-Dirichlet z ghosts; the launch counts as `yofc_laplacian_bf16`
+    alone."""
     grid = Grid.box(shape, tuple(1e-3 * n for n in shape))
     bc = FieldBC(((FaceBC("periodic"),) * 2, (FaceBC(NEUMANN),) * 2,
                   (FaceBC(DIRICHLET, 0.3), FaceBC(DIRICHLET, -0.2))))
@@ -809,11 +817,10 @@ def test_laplacian_bf16_kernel_matches_plain(cuda, shape):
                     for g in face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN))))
     pp = pad_scalar(p, bc)
     plain = laplacian_facegamma_padded(gamma_f, pp, grid)
-    before = (fs.laplacian_facegamma_fused.launches, fs.laplacian_facegamma_fused.launches_bf16)
+    before = Counter(LAUNCHES)
     kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
     torch.cuda.synchronize()
-    assert (fs.laplacian_facegamma_fused.launches,
-            fs.laplacian_facegamma_fused.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert _launched(before) == {"yofc_laplacian_bf16": 1}
     assert kern.dtype == plain.dtype == torch.bfloat16 and bool(torch.isfinite(kern).all())
     scale = float(plain.float().abs().max())
     ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
@@ -862,12 +869,12 @@ def test_laplacian_bf16_kernel_bit_for_bit(cuda, shape, ghosts):
                     for g in face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN))))
     pp = pad_scalar(p, _BF16_GHOSTS[ghosts])
     plain = laplacian_facegamma_padded(gamma_f, pp, grid)
-    before = fs.laplacian_facegamma_fused.launches_bf16
+    before = LAUNCHES["yofc_laplacian_bf16"]
     kern = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
     odd = fs.laplacian_facegamma_fused(tuple(_misaligned_copy(g) for g in gamma_f),
                                        _misaligned_copy(pp), grid)
     torch.cuda.synchronize()
-    assert fs.laplacian_facegamma_fused.launches_bf16 == before + 2
+    assert LAUNCHES["yofc_laplacian_bf16"] == before + 2
     assert kern.dtype == torch.bfloat16 and bool(torch.isfinite(kern).all())
     assert torch.equal(kern, plain) and torch.equal(odd, plain)
 
@@ -886,12 +893,12 @@ def test_bf16_vcycle_kernel_equals_plain(cuda):
     gamma_f = face_interp_all_padded(pad_scalar(gamma, FieldBC.uniform(NEUMANN)))
     r = torch.randn(grid.shape, generator=gen, device=cuda)
     cfg = pr.MGConfig(bf16=True)
-    before = fs.laplacian_facegamma_fused.launches_bf16
+    before = LAUNCHES["yofc_laplacian_bf16"]
     kern = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=True)(r)
-    launched = fs.laplacian_facegamma_fused.launches_bf16 - before
+    launched = LAUNCHES["yofc_laplacian_bf16"] - before
     plain = pr.make_mg_preconditioner(gamma_f, grid, bc, cfg, use_pallas=False)(r)
     torch.cuda.synchronize()
-    assert launched > 0 and fs.laplacian_facegamma_fused.launches_bf16 == before + launched
+    assert launched > 0 and LAUNCHES["yofc_laplacian_bf16"] == before + launched
     assert bool(torch.isfinite(kern).all()) and torch.equal(kern, plain)
 
 
@@ -965,7 +972,7 @@ def test_mg_kernels_match_plain(cuda, n0, bc):
     while n >= 4:
         level, gen = _mg_level(n, MG_BCS[bc], cuda, seed=n, h=h)
         x, b = (torch.randn(level.grid.shape, generator=gen, device=cuda) for _ in range(2))
-        before = mg.launches()
+        before = Counter(LAUNCHES)
         cases = [("sweep", mg.jacobi(level, x, b, 0.8), mg.jacobi_plain(level, x, b, 0.8)),
                  ("sweep from zero", mg.jacobi(level, None, b, 0.8),
                   mg.jacobi_plain(level, None, b, 0.8))]
@@ -983,7 +990,9 @@ def test_mg_kernels_match_plain(cuda, n0, bc):
             cases.append(("coarse", mg.coarse(level, b, 24, 0.8),
                           mg.coarse_plain(level, b, 24, 0.8)))
         torch.cuda.synchronize()
-        assert mg.launches() == before + len(cases)
+        assert _launched(before) == Counter(
+            "yofc_mg_coarse" if name == "coarse" else "yofc_mg_residual_restrict"
+            if "restrict" in name else "yofc_mg_jacobi" for name, _, _ in cases)
         for name, kern, plain in cases:
             assert kern.shape == plain.shape, (n, name)
             _assert_channels_close(kern[None], plain[None])
@@ -999,7 +1008,7 @@ def test_mg_kernels_refuse_what_they_do_not_take(cuda):
     from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
     level, gen = _mg_level(32, MG_BCS["channel"], cuda, seed=1)
     b = torch.randn(level.grid.shape, generator=gen, device=cuda)
-    before = mg.launches()
+    before = Counter(LAUNCHES)
     with pytest.raises(ValueError, match="at most 4096"):
         mg.coarse(level, b, 4, 0.8)
     with pytest.raises(ValueError, match="homogeneous"):
@@ -1009,7 +1018,7 @@ def test_mg_kernels_refuse_what_they_do_not_take(cuda):
                   None, b, 0.8)
     with pytest.raises(ValueError, match="b must be"):
         mg.residual_restrict(level, None, b.double())
-    assert mg.launches() == before
+    assert _launched(before) == {}
 
 
 @pytest.mark.cuda
@@ -1019,7 +1028,6 @@ def test_mg_vcycle_and_solve_match_the_plain_path(cuda, bc, monkeypatch):
     launches 9 x 4 + 1 = 37 kernels (55 at 256^3) and is within 1e-5 of
     scale of the plain path's on the card; `solve_pressure` with mgpcg takes
     the same CG iterations, x within 1e-5 of its scale."""
-    from yade_openfoam_coupling_tpu_torch.ops import mg_fused as mg
     from yade_openfoam_coupling_tpu_torch.ops import pressure as pr
     level, gen = _mg_level(64, MG_BCS[bc], cuda, seed=3)
     r = torch.randn(level.grid.shape, generator=gen, device=cuda)
@@ -1029,10 +1037,11 @@ def test_mg_vcycle_and_solve_match_the_plain_path(cuda, bc, monkeypatch):
     M = pr.make_mg_preconditioner(level.gamma_f, level.grid, level.bc, mgc)
     M(r)
     torch.cuda.synchronize()
-    before = (mg.launches(), fs.laplacian_facegamma_fused.launches)
+    before = Counter(LAUNCHES)
     kern = M(r)
     torch.cuda.synchronize()
-    assert (mg.launches(), fs.laplacian_facegamma_fused.launches) == (before[0] + 37, before[1])
+    assert _launched(before) == {"yofc_mg_jacobi": 32, "yofc_mg_residual_restrict": 4,
+                                 "yofc_mg_coarse": 1}
     solved = pr.solve_pressure(*args)
     _plain_mg_on_the_card(monkeypatch)
     plain = pr.make_mg_preconditioner(level.gamma_f, level.grid, level.bc, mgc)(r)
@@ -1059,10 +1068,10 @@ def test_rolls_kernel_many_taps(cuda, taps, nz, row):
     buf = torch.randn((taps * C, width), generator=gen, device=cuda)
     bufT = buf[:, :ncells].view((taps, C) + shape)
     plain = rolls.distribute_rolls_reference(bufT, offsets)
-    before = rolls.distribute_rolls.launches
+    before = Counter(LAUNCHES)
     kern = rolls.distribute_rolls(bufT, offsets)
     torch.cuda.synchronize()
-    assert rolls.distribute_rolls.launches == before + 1
+    assert _launched(before) == {"yofc_rolls_deposit": 1}
     assert torch.equal(kern, plain)
 
 
@@ -1096,13 +1105,13 @@ def test_pcg_fixed_iters_reads_nothing_on_the_host(cuda, solver):
     ref = pr.pcg(apply_A, b, x0, precond=M, tol=1e-5, maxiter=200)
     n = int(ref.iters)
     torch.cuda.synchronize()
-    launches = fs.laplacian_facegamma_fused.launches
+    launches = LAUNCHES["yofc_laplacian"] + LAUNCHES["yofc_laplacian_bf16"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = pr.pcg(apply_A, b, x0, precond=M, tol=1e-5, maxiter=200, fixed_iters=n + 3)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert fs.laplacian_facegamma_fused.launches > launches + n
+    assert LAUNCHES["yofc_laplacian"] + LAUNCHES["yofc_laplacian_bf16"] > launches + n
     assert int(out.iters) == n > 2
     assert float((out.x - ref.x).abs().max()) <= 1e-6 * float(ref.x.abs().max())
 
@@ -1201,7 +1210,7 @@ def test_meshtree_kernels_match_the_host_library(cuda, name, order):
     np.testing.assert_array_equal(card.box, nb.morton_box(pts))
     assert card._handle is None         # the host tree is freed once uploaded
     p = np.random.RandomState(12).permutation(len(q)) if order == "shuffled" else np.arange(len(q))
-    n0, r0, k0 = nb.tree_nearest.launches, nb.tree_range.launches, nb.morton_keys.launches
+    before = Counter(LAUNCHES)
     idx, d2 = card.nearest(torch.as_tensor(q[p], device=cuda))
     torch.cuda.synchronize()
     hidx, hd2 = host.nearest(q)
@@ -1211,8 +1220,8 @@ def test_meshtree_kernels_match_the_host_library(cuda, name, order):
         got, hit = card.range_query(q[p], r, cap=cap), host.range_query(q, r, cap=cap)
         assert torch.equal(got[0].cpu(), hit[0][p]) and torch.equal(got[1].cpu(), hit[1][p])
     assert int(hit[1].max()) == caps[-1]        # the last cap is below some hit count
-    assert (nb.tree_nearest.launches - n0, nb.tree_range.launches - r0,
-            nb.morton_keys.launches - k0) == (1, len(caps), 1 + len(caps))
+    assert _launched(before) == {"yofc_tree_nearest": 1, "yofc_tree_range": len(caps),
+                                 "yofc_tree_keys": 1 + len(caps)}
 
 
 @pytest.mark.cuda
@@ -1220,10 +1229,10 @@ def test_meshtree_kernels_edge_cases(cuda):
     """No query launches nothing; one point; a cap of 0; queries far out;
     one query, and 129 (a block and one) at caps on either side of the
     range kernel's shared-memory buffer."""
-    n0 = nb.tree_nearest.launches
+    n0 = LAUNCHES["yofc_tree_nearest"]
     tree = nb.MeshTree(np.array([[0.5, 0.5, 0.5]]), device=cuda)
     idx, d2 = tree.nearest(np.zeros((0, 3)))
-    assert idx.shape == (0,) and nb.tree_nearest.launches == n0
+    assert idx.shape == (0,) and LAUNCHES["yofc_tree_nearest"] == n0
     idx, n = tree.range_query(np.zeros((0, 3)), 1.0, cap=4)
     assert idx.shape == (0, 4) and n.shape == (0,)
     q = np.array([[0.5, 0.5, 0.5], [1e9, -1e9, 3.0]])
@@ -1259,14 +1268,14 @@ def test_meshtree_keys_kernel_matches_its_plain_version(cuda):
     pts = rng.rand(1000, 3) * [1.0, 2.0, 0.5]
     q = np.concatenate([rng.rand(5000, 3) * 3 - 1, pts.min(0)[None], pts.max(0)[None],
                         [[1e9, -1e9, 0.2], [np.inf, -np.inf, np.nan], [np.nan] * 3]])
-    k0 = nb.morton_keys.launches
+    k0 = LAUNCHES["yofc_tree_keys"]
     for box in (nb.morton_box(pts), nb.morton_box(pts[:1])):
         qd = torch.as_tensor(q, device=cuda)
         keys = nb.morton_keys(qd, box)
         assert keys.device.type == "cuda" and keys.dtype == torch.int16
         assert torch.equal(keys, nb.morton_keys_reference(qd, box))
         assert torch.equal(keys.cpu(), nb.morton_keys(torch.as_tensor(q), box))
-    assert nb.morton_keys.launches - k0 == 2
+    assert LAUNCHES["yofc_tree_keys"] - k0 == 2
     assert nb.morton_keys(torch.zeros((0, 3), dtype=torch.float64, device=cuda),
                           nb.morton_box(pts)).shape == (0,)
 
@@ -1360,10 +1369,10 @@ def _dem_kernel_and_plain(args, kw):
     from chip_smoke import plain_dem
 
     from yade_openfoam_coupling_tpu_torch.ops import dem
-    from yade_openfoam_coupling_tpu_torch.ops import dem_fused as df
-    before = (df.pack_drift.launches, df.substep.launches)
+    before = Counter(LAUNCHES)
     kern = dem.dem_substeps(*args, **kw)
-    launched = (df.pack_drift.launches - before[0], df.substep.launches - before[1])
+    launched = LAUNCHES - before
+    launched = (launched["yofc_dem_pack_drift"], launched["yofc_dem_substep"])
     with plain_dem():
         plain = dem.dem_substeps(*args, **kw)
     torch.cuda.synchronize()
@@ -1417,7 +1426,7 @@ def test_dem_fused_wrappers_refuse_what_they_do_not_take(cuda):
     pos, vel, ang, radius, active, hydro, grid, cfg, dt = args[:9]
     carried, nbr = kw["carried"], kw["nbr"]
     rec = df.pack_drift(pos, vel, ang, radius, active, carried, hydro, grid, cfg, dt)
-    before = df.launches()
+    before = Counter(LAUNCHES)
     with pytest.raises(ValueError, match="vel must be"):
         df.pack_drift(pos, vel.double(), ang, radius, active, carried, hydro, grid, cfg, dt)
     with pytest.raises(ValueError, match="hydro torque must be"):
@@ -1432,7 +1441,7 @@ def test_dem_fused_wrappers_refuse_what_they_do_not_take(cuda):
         df.substep(rec[:, :11].contiguous(), nbr, hydro, grid, cfg, dt, last=True)
     with pytest.raises(ValueError, match="dt must be"):
         df.substep(rec, nbr, hydro, grid, cfg, dt.cpu())
-    assert df.launches() == before
+    assert _launched(before) == {}
 
 
 @pytest.mark.cuda
@@ -1445,7 +1454,6 @@ def test_dem_span_holds_the_fused_kernels_and_no_host_copy(cuda, tmp_path):
 
     from yade_openfoam_coupling_tpu_torch import bench
     from yade_openfoam_coupling_tpu_torch.models import coupled as cd
-    from yade_openfoam_coupling_tpu_torch.ops import dem_fused as df
     from yade_openfoam_coupling_tpu_torch.utils import profiling
 
     cfg = _sync_case("window_fftpcg")
@@ -1453,10 +1461,11 @@ def test_dem_span_holds_the_fused_kernels_and_no_host_copy(cuda, tmp_path):
     run = cd.make_scan_fn(cfg, steps)
     state, _ = run(bench.initial_state(cfg, 2000, cuda))
     torch.cuda.synchronize()
-    before = (df.pack_drift.launches, df.substep.launches)
+    before = Counter(LAUNCHES)
     with profiling.trace(str(tmp_path)):
         run(state)
-    assert (df.pack_drift.launches - before[0], df.substep.launches - before[1]) == (
+    launched = LAUNCHES - before
+    assert (launched["yofc_dem_pack_drift"], launched["yofc_dem_substep"]) == (
         steps, cfg.n_dem_substeps * steps)
     events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
               if e.get("ph") == "X"]

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.scripts import proto_dynwin as tdw
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "proto_dynwin.py"
@@ -63,7 +64,7 @@ def test_stage_planes_matches_pallas(recorded, dynamic):
     np.testing.assert_array_equal(by_flag[False][1], by_flag[True][1])
     dat, nch = torch.as_tensor(j_dat), torch.as_tensor(j_nch)
     out = tdw.stage_planes(dat, nch, tdw.NY, tdw.NZ, tdw.W_CHUNK, dynamic)
-    assert tdw.stage_planes.launches == 0                 # CPU: the plain version
+    assert LAUNCHES["yofc_dynwin_staging"] == 0           # CPU: the plain version
     assert out.shape == ref.shape == (8, tdw.NY, tdw.NZ)
     scale = np.abs(ref).max()
     assert scale > 0 and np.abs(out.numpy() - ref).max() <= 1e-6 * scale

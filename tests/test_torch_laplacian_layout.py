@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
 from yade_openfoam_coupling_tpu_torch.ops.grid import FieldBC, Grid, pad_scalar
 from yade_openfoam_coupling_tpu_torch.ops.stencil import laplacian_facegamma_padded
@@ -75,9 +76,8 @@ def test_cpu_wrapper_runs_the_plain_version(dtype):
                     FieldBC.periodic()).to(dtype)
     gamma_f = tuple(torch.as_tensor((0.5 + rng.rand(*s)).astype(np.float32)).to(dtype)
                     for s in ((14, 10, 17), (13, 11, 17), (13, 10, 18)))
-    launches = (fs.laplacian_facegamma_fused.launches, fs.laplacian_facegamma_fused.launches_bf16)
+    launches = (LAUNCHES["yofc_laplacian"], LAUNCHES["yofc_laplacian_bf16"])
     out = fs.laplacian_facegamma_fused(gamma_f, pp, grid)
     assert out.dtype == dtype
     assert torch.equal(out, laplacian_facegamma_padded(gamma_f, pp, grid))
-    assert (fs.laplacian_facegamma_fused.launches,
-            fs.laplacian_facegamma_fused.launches_bf16) == launches
+    assert (LAUNCHES["yofc_laplacian"], LAUNCHES["yofc_laplacian_bf16"]) == launches

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from yade_openfoam_coupling_tpu.native import bindings as jnb
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.native import MeshTree, available, bin_points
 from yade_openfoam_coupling_tpu_torch.native import bindings as tnb
 from yade_openfoam_coupling_tpu_torch.native import mirror
@@ -308,7 +309,7 @@ def test_tree_arrays_are_a_median_layout():
 def test_queries_take_tensors_and_arrays_and_launch_nothing_on_the_cpu():
     rng = np.random.RandomState(5)
     pts, q = rng.rand(100, 3), rng.rand(10, 3).astype(np.float32)
-    before = (tnb.tree_nearest.launches, tnb.tree_range.launches)
+    before = (LAUNCHES["yofc_tree_nearest"], LAUNCHES["yofc_tree_range"])
     a = MeshTree(pts, device="cpu")
     b = MeshTree(torch.as_tensor(pts, dtype=torch.float64), device="cpu")
     for x in (q, torch.as_tensor(q)):
@@ -320,7 +321,7 @@ def test_queries_take_tensors_and_arrays_and_launch_nothing_on_the_cpu():
     assert idx.shape == (10, 16) and idx.dtype == torch.int32 and n.dtype == torch.int32
     e_idx, e_d2 = a.nearest(np.zeros((0, 3)))
     assert e_idx.shape == (0,) and e_d2.shape == (0,)
-    assert (tnb.tree_nearest.launches, tnb.tree_range.launches) == before
+    assert (LAUNCHES["yofc_tree_nearest"], LAUNCHES["yofc_tree_range"]) == before
 
 
 def test_timing_bound_reads_the_tree_once():

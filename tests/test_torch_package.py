@@ -5,6 +5,7 @@ the packages exactly."""
 import dataclasses
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -27,6 +28,7 @@ from yade_openfoam_coupling_tpu.ops import dem as jdem
 from yade_openfoam_coupling_tpu.ops import pressure as jpr
 from yade_openfoam_coupling_tpu.ops.grid import Grid
 from yade_openfoam_coupling_tpu.utils import diagnostics as jdg
+from yade_openfoam_coupling_tpu_torch import kernels
 from yade_openfoam_coupling_tpu_torch.convert import (
     case_config_from,
     state_from_numpy,
@@ -36,6 +38,7 @@ from yade_openfoam_coupling_tpu_torch.models import coupled as tcd
 from yade_openfoam_coupling_tpu_torch.models import pimple as tpm
 from yade_openfoam_coupling_tpu_torch.models import piso as tps
 from yade_openfoam_coupling_tpu_torch.models import turbulence as ttb
+from yade_openfoam_coupling_tpu_torch.native import bindings as tnb
 from yade_openfoam_coupling_tpu_torch.ops import coupling as tcp
 from yade_openfoam_coupling_tpu_torch.ops import dem as tdem
 from yade_openfoam_coupling_tpu_torch.ops import pressure as tpr
@@ -185,3 +188,70 @@ def test_case_config_from_and_unported_options_raise():
         for name in ("u", "p"):
             o, r = getattr(out.fluid, name).numpy(), np.asarray(getattr(ref.fluid, name))
             assert np.abs(o - r).max() <= 1e-4 * np.abs(r).max(), (name, jcfg)
+
+
+def test_launch_route_by_device():
+    """`kernels.on_cpu`: a CPU device runs the plain version, a CUDA device
+    launches, any other device raises (no card needed to name one)."""
+    assert kernels.on_cpu("k kernel", torch.device("cpu")) is True
+    assert kernels.on_cpu("k kernel", torch.device("cuda")) is False
+    with pytest.raises(ValueError, match="k kernel: unsupported device meta"):
+        kernels.on_cpu("k kernel", torch.device("meta"))
+
+
+REQUIRE_FAULTS = {
+    "dtype": (torch.zeros((2, 3), dtype=torch.float64), False,
+              r"x must be a contiguous float32 tensor of shape \(2, 3\) on cpu; "
+              r"got torch.float64"),
+    "shape": (torch.zeros((3, 2)), False, r"x must be .* shape \(2, 3\) .*; got \S+ \(3, 2\)"),
+    "device": (torch.zeros((2, 3), device="meta"), False, r"x must be .* on cpu; got .* on meta"),
+    "contiguity": (torch.zeros((3, 2)).t(), False, r"x must be a contiguous .*strides \(1, 2\)"),
+    "inner stride": (torch.zeros((2, 6))[:, ::2], True,
+                     r"x must be a rows of unit stride float32 .*strides \(6, 2\)"),
+}
+
+
+@pytest.mark.parametrize("fault", list(REQUIRE_FAULTS))
+def test_require_names_the_argument_and_the_fault(fault):
+    t, rows, message = REQUIRE_FAULTS[fault]
+    with pytest.raises(ValueError, match="^k kernel: " + message):
+        kernels.require("k kernel", torch.device("cpu"), ("ok", None, (9,), torch.int32, False),
+                        ("x", t, (2, 3), torch.float32, rows))
+
+
+def test_require_passes_what_the_kernel_takes():
+    """Contiguous tensors, rows of unit stride where allowed (a padded row
+    view), None arguments, a 0-d tensor: no error."""
+    padded = torch.zeros((2, 4))[:, :3]
+    cpu, f32 = torch.device("cpu"), torch.float32
+    kernels.require("k kernel", cpu, ("a", torch.zeros((2, 3)), (2, 3), f32, False),
+                    ("b", padded, (2, 3), f32, True), ("c", None, (5,), torch.bool, False),
+                    ("d", torch.zeros((), dtype=torch.int32), (), torch.int32, False))
+    with pytest.raises(ValueError, match="b must be a contiguous"):
+        kernels.require("k kernel", cpu, ("b", padded, (2, 3), f32, False))
+
+
+def test_call_counts_each_launch_that_reports_no_error(monkeypatch):
+    """`kernels.call` counts a launch by its entry point only once the
+    entry point returns 0; a CUDA error raises and counts nothing."""
+    codes = iter((0, 0, 700))
+    lib = types.SimpleNamespace(yofc_probe=lambda *ptrs: next(codes))
+    monkeypatch.setattr(kernels, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setitem(kernels.LAUNCHES, "yofc_probe", 0)
+    before = dict(kernels.LAUNCHES)
+    for _ in range(2):
+        kernels.call("probe", "yofc_probe", "probe kernel", torch.zeros(1), None,
+                     device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="probe kernel launch failed: CUDA error 700"):
+        kernels.call("probe", "yofc_probe", "probe kernel", device=torch.device("cuda"))
+    assert dict(kernels.LAUNCHES) == {**before, "yofc_probe": 2}
+
+
+def test_native_queries_raise_for_an_unsupported_device():
+    """A query tensor on neither the CPU nor a CUDA device is refused by
+    the keys wrapper itself (it once went on to the card's library)."""
+    q = torch.empty((4, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="meshtree keys kernel: unsupported device meta"):
+        tnb.morton_keys(q, np.zeros(6))

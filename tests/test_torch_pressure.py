@@ -17,6 +17,7 @@ from yade_openfoam_coupling_tpu.ops import pressure as jpr
 from yade_openfoam_coupling_tpu.ops import stencil as jst
 from yade_openfoam_coupling_tpu.ops.pallas_stencil import laplacian_facegamma_pallas
 from yade_openfoam_coupling_tpu_torch.convert import config_from
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as tfs
 from yade_openfoam_coupling_tpu_torch.ops import grid as tg
 from yade_openfoam_coupling_tpu_torch.ops import pressure as tpr
@@ -56,7 +57,7 @@ def test_laplacian_plain_matches_pallas(bc_kind):
     pp = tg.pad_scalar(torch.as_tensor(p), config_from(bc))
     got = tfs.laplacian_facegamma_fused(tgf, pp, config_from(grid))
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=2e-5, atol=2e-4)
-    assert tfs.laplacian_facegamma_fused.launches == 0
+    assert LAUNCHES["yofc_laplacian"] + LAUNCHES["yofc_laplacian_bf16"] == 0
     with pytest.raises(ValueError, match="gamma_x"):
         tfs.laplacian_facegamma_fused((tgf[0].transpose(1, 2),) + tgf[1:], pp,
                                       config_from(grid))
@@ -263,6 +264,6 @@ def test_laplacian_bf16_plain_matches_pallas(bc_kind, shape):
     ref = np.asarray(expect, np.float64)
     two_ulps = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 6)
     assert np.abs(got.float().numpy() - ref).max() <= two_ulps
-    assert tfs.laplacian_facegamma_fused.launches == tfs.laplacian_facegamma_fused.launches_bf16 == 0
+    assert LAUNCHES["yofc_laplacian"] == LAUNCHES["yofc_laplacian_bf16"] == 0
     with pytest.raises(ValueError, match="gamma_x"):
         tfs.laplacian_facegamma_fused(tgf, pp, config_from(grid))

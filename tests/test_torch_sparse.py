@@ -16,6 +16,7 @@ from yade_openfoam_coupling_tpu.ops import coupling as jcp
 from yade_openfoam_coupling_tpu.ops.grid import Grid
 from yade_openfoam_coupling_tpu.ops.pallas_rolls import distribute_rolls_pallas
 from yade_openfoam_coupling_tpu_torch.convert import config_from
+from yade_openfoam_coupling_tpu_torch.kernels import LAUNCHES
 from yade_openfoam_coupling_tpu_torch.ops import coupling as tcp
 from yade_openfoam_coupling_tpu_torch.ops import rolls
 
@@ -50,7 +51,7 @@ def test_rolls_plain_matches_pallas(shape):
     view = torch.as_tensor(buf)[:, :ncells].view((S, C) + grid_shape)
     got = rolls.distribute_rolls(view, offsets)
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4, atol=1e-5)
-    assert rolls.distribute_rolls.launches == 0          # CPU: the plain version
+    assert LAUNCHES["yofc_rolls_deposit"] == 0           # CPU: the plain version
     # one channel: the size-1 dim's stride says nothing of the layout
     one = torch.as_tensor(buf[:S])[:, :ncells].view((S, 1) + grid_shape)
     assert rolls._plane_stride(one, offsets) == ncells + 1

@@ -7,18 +7,25 @@ names carry a hash of every file under ``csrc/`` (sources and the headers
 they include) and of the flags, so an edited source or header is rebuilt
 and an unchanged one is loaded as it is. Nothing here runs at import time;
 a failed build raises with the compiler's output.
+
+It also holds the launch contract every kernel wrapper of the port keeps:
+a CPU tensor runs the wrapper's plain version and a CUDA tensor launches
+the kernel (`on_cpu`), after the wrapper's tensor arguments pass
+`require`; `call` counts each launch in `LAUNCHES` by its entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -44,6 +51,9 @@ ENTRY_POINTS = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# launches that reported no error, by entry point (e.g. "yofc_mg_jacobi")
+LAUNCHES: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -130,6 +140,42 @@ def call(name: str, fn: str, kernel: str, *args, device) -> None:
     err = getattr(library(name), fn)(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[fn] += 1
+
+
+def on_cpu(kernel: str, device: torch.device) -> bool:
+    """True for a CPU device (the wrapper runs its plain version), False for
+    a CUDA device (it launches the kernel); raise for any other."""
+    kind = device.type
+    if kind == "cpu":
+        return True
+    if kind != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {device}")
+    return False
+
+
+Spec = Tuple[str, Optional[torch.Tensor], tuple, torch.dtype, bool]
+
+
+def require(kernel: str, device: torch.device, *specs: Spec) -> None:
+    """Raise unless each (name, tensor, shape, dtype, rows) of ``specs``
+    whose tensor is not None lies on ``device`` with that shape (a tuple)
+    and dtype, contiguous, or with ``rows`` only its last axis of unit
+    stride."""
+    for name, t, shape, dtype, rows in specs:
+        if t is not None and (t.dtype != dtype or t.shape != shape or t.device != device
+                              or not (t.stride(-1) == 1 if rows else t.is_contiguous())):
+            layout = "rows of unit stride" if rows else "contiguous"
+            raise ValueError(
+                f"{kernel}: {name} must be a {layout} {str(dtype).removeprefix('torch.')} "
+                f"tensor of shape {tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device} (strides {t.stride()})")
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import BUILD, compile_shared, source_digest
+from .. import kernels
 
 SOURCE = Path(__file__).resolve().parent / "meshtree.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
@@ -51,7 +51,8 @@ _P = ctypes.c_void_p
 def library_path() -> Path:
     """Where the host library for the current source and flags lives
     (built or not): its name carries a hash of both."""
-    return BUILD / f"libmeshtree_host_{source_digest(CXX_FLAGS, [SOURCE], SOURCE.parent)}.so"
+    digest = kernels.source_digest(CXX_FLAGS, [SOURCE], SOURCE.parent)
+    return kernels.BUILD / f"libmeshtree_host_{digest}.so"
 
 
 def _load() -> ctypes.CDLL:
@@ -65,7 +66,7 @@ def _load() -> ctypes.CDLL:
                 if cxx is None:
                     raise RuntimeError("g++ not found: the k-d tree's host library needs a "
                                        "C++ compiler")
-                compile_shared({path: [cxx, *CXX_FLAGS, str(SOURCE)]})
+                kernels.compile_shared({path: [cxx, *CXX_FLAGS, str(SOURCE)]})
             lib = ctypes.CDLL(str(path))
             lib.yofc_tree_build.restype = _P
             lib.yofc_tree_build.argtypes = [_P, ctypes.c_int32]
@@ -218,14 +219,12 @@ def morton_keys(q: torch.Tensor, box: np.ndarray) -> torch.Tensor:
     """The Morton keys of contiguous f64 queries (nq, 3) in a tree's
     ``box`` (`morton_box`): the plain version on a CPU tensor, the keys
     kernel of csrc/meshtree.cu on a CUDA tensor (or raise)."""
-    if q.device.type == "cpu":
+    if kernels.on_cpu(_KEYS, q.device):
         return morton_keys_reference(q, box)
-    from ..kernels import call
     keys = torch.empty(q.shape[0], dtype=torch.int16, device=q.device)
     if q.shape[0]:
-        call("meshtree", "yofc_tree_keys", _KEYS, np.asarray([q.shape[0]], np.int32),
-             np.ascontiguousarray(box, np.float64), q, keys, device=q.device)
-        morton_keys.launches += 1
+        kernels.call("meshtree", "yofc_tree_keys", _KEYS, np.asarray([q.shape[0]], np.int32),
+                     np.ascontiguousarray(box, np.float64), q, keys, device=q.device)
     return keys
 
 
@@ -248,16 +247,14 @@ def tree_nearest(tree: MeshTree, q: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     or raises."""
     nq = q.shape[0]
     _check_queries(nq)
-    if tree.device.type == "cpu":
+    if kernels.on_cpu(_NEAREST, tree.device):
         return tuple(torch.from_numpy(a) for a in tree._host_nearest(q.numpy()))
-    from ..kernels import call
     idx = torch.empty(nq, dtype=torch.int32, device=q.device)
     d2 = torch.empty(nq, dtype=torch.float64, device=q.device)
     if nq:
         ip = np.asarray([tree.n, nq], np.int32)
-        call("meshtree", "yofc_tree_nearest", _NEAREST, ip, tree.nodes, q,
-             query_order(q, tree.box), idx, d2, device=q.device)
-        tree_nearest.launches += 1
+        kernels.call("meshtree", "yofc_tree_nearest", _NEAREST, ip, tree.nodes, q,
+                     query_order(q, tree.box), idx, d2, device=q.device)
     return idx, d2
 
 
@@ -270,23 +267,16 @@ def tree_range(tree: MeshTree, q: torch.Tensor, radius: float, cap: int):
     _check_queries(nq)
     if cap < 0:
         raise ValueError(f"{_RANGE}: cap must be >= 0, got {cap}")
-    if tree.device.type == "cpu":
+    if kernels.on_cpu(_RANGE, tree.device):
         return tuple(torch.from_numpy(a) for a in tree._host_range(q.numpy(), radius, cap))
-    from ..kernels import call
     idx = torch.empty((nq, cap), dtype=torch.int32, device=q.device)
     n = torch.empty(nq, dtype=torch.int32, device=q.device)
     if nq:
         ip = np.asarray([tree.n, nq, cap], np.int32)
         fp = np.asarray([radius], np.float64)
-        call("meshtree", "yofc_tree_range", _RANGE, ip, fp, tree.nodes, q,
-             query_order(q, tree.box), idx, n, device=q.device)
-        tree_range.launches += 1
+        kernels.call("meshtree", "yofc_tree_range", _RANGE, ip, fp, tree.nodes, q,
+                     query_order(q, tree.box), idx, n, device=q.device)
     return idx, n
-
-
-tree_nearest.launches = 0
-tree_range.launches = 0
-morton_keys.launches = 0
 
 
 def bin_points(points, origin, spacing, dims, device="cuda"):

@@ -18,7 +18,7 @@ Pipeline, as in the JAX package:
 Each kernel wrapper (`fused_exchange_padded`, `interp_planes_padded`,
 `deposit_stacks`) runs its plain PyTorch version (`*_reference`) for CPU
 tensors and the hand-written CUDA kernel of `csrc/planes_exchange.cu` for
-CUDA tensors, or raises; `.launches` counts kernel launches. The port's
+CUDA tensors, or raises (`kernels.on_cpu`). The port's
 stacks are always one per dx with the dy and dz shifts applied, whatever
 ``cfg.dy_in_kernel`` says (the JAX launchers then return one per (dx, dy));
 the returned combos say which, and `_stack_epilogue` lands either.
@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils.profiling import annotate
 from . import coupling as cp
 from .dem import rank_in_sorted_segments
@@ -428,27 +429,11 @@ def _record_count(cap: int, ncl: int, max_occupied: Optional[int]) -> int:
 
 
 def _on_cpu(kernel: str, t: torch.Tensor, cfg: cp.CouplingConfig) -> bool:
-    """True when the wrapper runs the plain version (t lies on the CPU);
-    False for a CUDA tensor (the wrapper launches the kernel). Raises for
-    any other device, and for a stencil wider than the kernels' dx, dy,
-    dz in {-1, 0, 1}."""
+    """`kernels.on_cpu` of t's device, after raising for a stencil wider
+    than the kernels' dx, dy, dz in {-1, 0, 1}."""
     if cfg.stencil_width != 3:
         raise NotImplementedError(f"{kernel}: stencil_width must be 3")
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"{kernel}: unsupported device {t.device}")
-    return False
-
-
-def _check_cuda(kernel: str, name: str, t: torch.Tensor, shape, device,
-                dtype=torch.float32):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
+    return kernels.on_cpu(kernel, t.device)
 
 
 _LAYOUT_CHECKED = set()
@@ -459,10 +444,9 @@ _LAYOUT_PROBES = ((5, 0), (7, 3), (210, 61), (128 ** 3, 100_000))
 def library_scratch_layout(lib_name: str, ncl: int, n_rec: int):
     """The scratch layout that `carve` of library ``lib_name`` uses: word
     offsets of its segments and the total, as `_scratch_layout` gives them."""
-    from ..kernels import library
     sizes = np.array([ncl, n_rec], np.int64)
     out = np.zeros(5, np.int64)
-    library(lib_name).yofc_scratch_layout(sizes.ctypes.data, out.ctypes.data)
+    kernels.library(lib_name).yofc_scratch_layout(sizes.ctypes.data, out.ctypes.data)
     return tuple(int(v) for v in out)
 
 
@@ -470,10 +454,9 @@ def _launch(lib_name: str, fn: str, kernel: str, ip, fp, *tensors, device):
     """Call one entry point of a kernel library on the current stream;
     raise if a launch fails, or, at the first call into each library, if
     its parameter, record or scratch layout differs from this module's."""
-    from ..kernels import call, library
     if lib_name not in _LAYOUT_CHECKED:
         counts = [ctypes.c_int() for _ in range(3)]
-        library(lib_name).yofc_param_counts(*(ctypes.byref(c) for c in counts))
+        kernels.library(lib_name).yofc_param_counts(*(ctypes.byref(c) for c in counts))
         got = tuple(c.value for c in counts)
         if got != (ip.size, fp.size, _REC_FLOATS):
             raise RuntimeError(f"{kernel}: parameter layout of the library {got} != "
@@ -483,7 +466,7 @@ def _launch(lib_name: str, fn: str, kernel: str, ip, fp, *tensors, device):
                 raise RuntimeError(f"{kernel}: scratch layout of the library differs from "
                                    f"_scratch_layout at (ncell, n_rec) = {probe}")
         _LAYOUT_CHECKED.add(lib_name)
-    call(lib_name, fn, kernel, ip, fp, *tensors, device=device)
+    kernels.call(lib_name, fn, kernel, ip, fp, *tensors, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -517,19 +500,16 @@ def interp_planes_padded(Fp: torch.Tensor, D: torch.Tensor, grid: Grid, periodic
     cap, ncl, dev = cfg.slot_capacity, nxl * ny * nz, Fp.device
     if C_in not in (10, 13, 16) or D.shape[0] not in (7, 10):
         raise ValueError(f"{kernel}: C_in {C_in} / C_d {D.shape[0]} not taken")
-    _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
-    _check_cuda(kernel, "D", D, (D.shape[0], cap, ncl), dev)
+    f32 = torch.float32
+    kernels.require(kernel, dev, ("Fp", Fp, _padded_shape(C_in, nxl, grid), f32, False),
+                    ("D", D, (D.shape[0], cap, ncl), f32, False))
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, D.shape[0], C_in, int(x_off),
                             absolute=True)
     G = torch.empty((C_in, cap, ncl), dtype=torch.float32, device=dev)
     norm = torch.empty((cap, ncl), dtype=torch.float32, device=dev)
     _launch("planes_exchange", "yofc_planes_interp", kernel, ip, fp, Fp, D, G, norm,
             device=dev)
-    interp_planes_padded.launches += 1
     return G, norm
-
-
-interp_planes_padded.launches = 0
 
 
 def interp_planes(F, D, grid: Grid, periodic, cfg: cp.CouplingConfig):
@@ -568,8 +548,9 @@ def deposit_stacks(V: torch.Tensor, D: torch.Tensor, nxl: int, grid: Grid, perio
     cap, ncl, dev = cfg.slot_capacity, nxl * ny * nz, V.device
     if D.shape[0] not in (7, 10):
         raise ValueError(f"{kernel}: C_d {D.shape[0]} not taken")
-    _check_cuda(kernel, "V", V, (8, cap, ncl), dev)
-    _check_cuda(kernel, "D", D, (D.shape[0], cap, ncl), dev)
+    f32 = torch.float32
+    kernels.require(kernel, dev, ("V", V, (8, cap, ncl), f32, False),
+                    ("D", D, (D.shape[0], cap, ncl), f32, False))
     n_rec = _record_count(cap, ncl, max_occupied)
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, D.shape[0], 0, int(x_off),
                             absolute=True, n_rec=n_rec)
@@ -577,11 +558,7 @@ def deposit_stacks(V: torch.Tensor, D: torch.Tensor, nxl: int, grid: Grid, perio
     stks = torch.empty((3, 8, nxl, ny, nz), dtype=torch.float32, device=dev)
     _launch("planes_exchange", "yofc_planes_deposit", kernel, ip, fp, D, V, scratch, stks,
             device=dev)
-    deposit_stacks.launches += 1
     return stks, list(DX_COMBOS)
-
-
-deposit_stacks.launches = 0
 
 
 def deposit_planes(V, D, grid: Grid, periodic, cfg: cp.CouplingConfig, *,
@@ -626,8 +603,9 @@ def fused_exchange_padded(Fp: torch.Tensor, D: torch.Tensor, grid: Grid, periodi
     nxl, ny, nz = Fp.shape[1] - 2, Fp.shape[2] - 2, Fp.shape[3] - 2
     cap, ncl, dev = cfg.slot_capacity, nxl * ny * nz, Fp.device
     C_d, C_in, n_pres = _channel_counts(cfg)
-    _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
-    _check_cuda(kernel, "D", D, (C_d, cap, ncl), dev)
+    f32 = torch.float32
+    kernels.require(kernel, dev, ("Fp", Fp, _padded_shape(C_in, nxl, grid), f32, False),
+                    ("D", D, (C_d, cap, ncl), f32, False))
     n_rec = _record_count(cap, ncl, max_occupied)
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
                             absolute=True, nu=nu, rho_f=rho_f, n_rec=n_rec)
@@ -636,11 +614,7 @@ def fused_exchange_padded(Fp: torch.Tensor, D: torch.Tensor, grid: Grid, periodi
     pres = torch.empty((n_pres, cap, ncl), dtype=torch.float32, device=dev)
     _launch("planes_exchange", "yofc_planes_fused", kernel, ip, fp, Fp, D, scratch, stks,
             pres, device=dev)
-    fused_exchange_padded.launches += 1
     return stks, list(DX_COMBOS), pres
-
-
-fused_exchange_padded.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils.profiling import annotate, host_tensor
 from . import coupling as cp
 from .coupling_planes import (
     DX_COMBOS,
     _channel_counts,
-    _check_cuda,
     _coupling_result,
     _input_stack,
     _inv2s2,
@@ -154,8 +154,7 @@ def window_exchange_padded(
     """-> (stks, combos, pres), the contract of the JAX launcher. CPU
     tensors run the plain version; CUDA tensors launch the kernel of
     csrc/window_exchange.cu or raise. The kernel stages no slot table: it
-    keeps one 96-byte record per window row in its scratch.
-    ``window_exchange_padded.launches`` counts kernel launches."""
+    keeps one 96-byte record per window row in its scratch."""
     kernel = "window kernel"
     if _on_cpu(kernel, Fp, cfg):
         return window_exchange_padded_reference(
@@ -166,10 +165,10 @@ def window_exchange_padded(
     C_w = 2 * C_d + 3
     W = dat_win.shape[-1]
     dev = Fp.device
-    _check_cuda(kernel, "Fp", Fp, _padded_shape(C_in, nxl, grid), dev)
-    _check_cuda(kernel, "dat_win", dat_win, (nxl, C_w, W), dev)
-    if counts is not None:
-        _check_cuda(kernel, "counts", counts, (nxl,), dev, dtype=torch.int32)
+    f32 = torch.float32
+    kernels.require(kernel, dev, ("Fp", Fp, _padded_shape(C_in, nxl, grid), f32, False),
+                    ("dat_win", dat_win, (nxl, C_w, W), f32, False),
+                    ("counts", counts, (nxl,), torch.int32, False))
 
     ip, fp = _kernel_params(grid, periodic, cfg, nxl, C_d, C_in, int(x_off),
                             absolute=False, nu=nu, rho_f=rho_f, W=W, C_w=C_w, n_rec=nxl * W)
@@ -179,11 +178,7 @@ def window_exchange_padded(
     pres = torch.empty((n_pres, cap, ncell), dtype=torch.float32, device=dev)
     _launch("window_exchange", "yofc_window_exchange", kernel, ip, fp, Fp, dat_win,
             counts, scratch, stks, pres, device=dev)
-    window_exchange_padded.launches += 1
     return stks, list(DX_COMBOS), pres
-
-
-window_exchange_padded.launches = 0
 
 
 class WindowBins(NamedTuple):

@@ -18,9 +18,9 @@ signature beside it, the loop's own operations in its own order:
   the closing kick only, -> (pos, vel, angvel, fc, tc).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. Each wrapper counts its launches (``.launches``). `on_route` says
-which calls of `dem.dem_substeps` run the loop here, and `substeps` runs
-it: 1 + n_sub launches, no host copy.
+raises (`kernels.on_cpu`); `kernels.LAUNCHES` counts the launches.
+`on_route` says which calls of `dem.dem_substeps` run the loop here, and
+`substeps` runs it: 1 + n_sub launches, no host copy.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from . import dem
 from .grid import Grid
 
@@ -136,29 +137,10 @@ def _params(grid: Grid, cfg: dem.DEMConfig, n: int, k: int, force_stride: int,
     return ip, fp
 
 
-def _check(device, expected) -> bool:
-    """Raise on what the kernels do not take: each (name, tensor, shape,
-    dtype) of ``expected`` on ``device`` (a CPU or CUDA device) with that
-    shape and dtype, contiguous (a hydro array: its last axis); a 0-d dt.
-    -> whether the tensors lie on the CPU."""
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_KERNEL}: unsupported device {device}")
-    for name, t, shape, dtype in expected:
-        inner = name.startswith("hydro")
-        ok = (t.dtype == dtype and tuple(t.shape) == shape and t.device == device
-              and (t.stride(-1) == 1 if inner else t.is_contiguous()))
-        if not ok:
-            layout = "rows of unit stride" if inner else "contiguous"
-            raise ValueError(
-                f"{_KERNEL}: {name} must be a {layout} {dtype} tensor of shape {shape} on "
-                f"{device}; got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(strides {t.stride()})")
-    return device.type == "cpu"
-
-
-def _hydro_checks(hydro: dem.DEMForces, n: int):
-    return [("hydro force", hydro.force, (n, 3), torch.float32),
-            ("hydro torque", hydro.torque, (n, 3), torch.float32)]
+def _hydro(hydro: dem.DEMForces, n: int):
+    """The hydro arrays' specs for `kernels.require`: rows of unit stride."""
+    return (("hydro force", hydro.force, (n, 3), torch.float32, True),
+            ("hydro torque", hydro.torque, (n, 3), torch.float32, True))
 
 
 def _params_for(grid, cfg, n, k, hydro):
@@ -171,25 +153,21 @@ def pack_drift(pos, vel, angvel, radius, active, carried, hydro: dem.DEMForces, 
     ``carried`` (fc, tc) under gravity and ``hydro``, into a new (N + 1,
     RECORD) record buffer. ``dt``: a 0-d tensor, read by the kernel on the
     card."""
-    n = pos.shape[0]
+    n, dev, f32 = pos.shape[0], pos.device, torch.float32
+    cpu = kernels.on_cpu(_KERNEL, dev)
     vec = (n, 3)
-    if _check(pos.device, [("pos", pos, vec, torch.float32),
-                           ("vel", vel, vec, torch.float32),
-                           ("angvel", angvel, vec, torch.float32),
-                           ("radius", radius, (n,), torch.float32),
-                           ("active", active, (n,), torch.bool),
-                           ("fc", carried[0], vec, torch.float32),
-                           ("tc", carried[1], vec, torch.float32),
-                           *_hydro_checks(hydro, n),
-                           ("dt", dt, (), torch.float32)]):
+    kernels.require(_KERNEL, dev, ("pos", pos, vec, f32, False), ("vel", vel, vec, f32, False),
+                    ("angvel", angvel, vec, f32, False), ("radius", radius, (n,), f32, False),
+                    ("active", active, (n,), torch.bool, False),
+                    ("fc", carried[0], vec, f32, False), ("tc", carried[1], vec, f32, False),
+                    *_hydro(hydro, n), ("dt", dt, (), f32, False))
+    if cpu:
         return pack_drift_plain(pos, vel, angvel, radius, active, carried, hydro, grid, cfg,
                                 dt)
-    from ..kernels import call
     ip, fp = _params_for(grid, cfg, n, 1, hydro)
-    rec = torch.empty((n + 1, RECORD), dtype=torch.float32, device=pos.device)
-    call("dem_substep", "yofc_dem_pack_drift", _KERNEL, ip, fp, dt, pos, vel, angvel, radius,
-         active, *carried, hydro.force, hydro.torque, rec, device=pos.device)
-    pack_drift.launches += 1
+    rec = torch.empty((n + 1, RECORD), dtype=f32, device=dev)
+    kernels.call("dem_substep", "yofc_dem_pack_drift", _KERNEL, ip, fp, dt, pos, vel, angvel,
+                 radius, active, *carried, hydro.force, hydro.torque, rec, device=dev)
     return rec
 
 
@@ -204,30 +182,20 @@ def substep(records, nbr, hydro: dem.DEMForces, grid: Grid, cfg: dem.DEMConfig, 
     if not 1 <= k <= MAX_NEIGHBORS:
         raise ValueError(f"{_KERNEL}: nbr must be (N, K) with 1 <= K <= {MAX_NEIGHBORS}; "
                          f"got {tuple(nbr.shape)}")
-    if _check(records.device, [("records", records, (n + 1, RECORD), torch.float32),
-                               ("nbr", nbr, (n, k), torch.int32),
-                               *_hydro_checks(hydro, n),
-                               ("dt", dt, (), torch.float32)]):
-        return substep_plain(records, nbr, hydro, grid, cfg, dt, last)
-    from ..kernels import call
-    ip, fp = _params_for(grid, cfg, n, k, hydro)
     dev = records.device
+    cpu = kernels.on_cpu(_KERNEL, dev)
+    kernels.require(_KERNEL, dev, ("records", records, (n + 1, RECORD), torch.float32, False),
+                    ("nbr", nbr, (n, k), torch.int32, False), *_hydro(hydro, n),
+                    ("dt", dt, (), torch.float32, False))
+    if cpu:
+        return substep_plain(records, nbr, hydro, grid, cfg, dt, last)
+    ip, fp = _params_for(grid, cfg, n, k, hydro)
     if last:
         outs = tuple(torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(5))
-        call("dem_substep", "yofc_dem_substep", _KERNEL, ip, fp, dt, records, nbr, hydro.force,
-             hydro.torque, None, *outs, device=dev)
+        kernels.call("dem_substep", "yofc_dem_substep", _KERNEL, ip, fp, dt, records, nbr,
+                     hydro.force, hydro.torque, None, *outs, device=dev)
     else:
         outs = torch.empty_like(records)
-        call("dem_substep", "yofc_dem_substep", _KERNEL, ip, fp, dt, records, nbr, hydro.force,
-             hydro.torque, outs, None, None, None, None, None, device=dev)
-    substep.launches += 1
+        kernels.call("dem_substep", "yofc_dem_substep", _KERNEL, ip, fp, dt, records, nbr,
+                     hydro.force, hydro.torque, outs, None, None, None, None, None, device=dev)
     return outs
-
-
-pack_drift.launches = 0
-substep.launches = 0
-
-
-def launches() -> int:
-    """The two kernels' launches so far."""
-    return pack_drift.launches + substep.launches

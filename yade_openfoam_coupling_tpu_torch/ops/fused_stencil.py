@@ -4,10 +4,8 @@
 `laplacian_facegamma_fused` computes div(gamma_f grad p) from a
 ghost-padded p. It runs the hand-written CUDA kernel of `csrc/laplacian.cu`
 for CUDA tensors, or raises, and its plain PyTorch version, the port's
-`stencil.laplacian_facegamma_padded`, for CPU tensors;
-``laplacian_facegamma_fused.launches`` counts kernel launches of either
-dtype, ``laplacian_facegamma_fused.launches_bf16`` the bfloat16 ones (the
-V-cycle under `MGConfig.bf16`).
+`stencil.laplacian_facegamma_padded`, for CPU tensors; the bfloat16 entry
+(the V-cycle under `MGConfig.bf16`) is ``yofc_laplacian_bf16``.
 `pressure.poisson_apply(..., use_pallas=True)` calls it where the JAX
 package calls its Pallas kernel. The kernel's parameter arrays (the shape,
 the bf16 entry's launch geometry, 1/h) are built once per shape, spacing
@@ -22,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from .grid import Grid
 from .stencil import Flux, laplacian_facegamma_padded
 
@@ -66,51 +65,22 @@ def _params(shape: Tuple[int, int, int], spacing: Tuple[float, float, float],
     return ip, fp
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _check(gamma_f: Flux, pp: torch.Tensor) -> None:
-    """What the kernel takes: contiguous float32 or bfloat16 pp (nx+2, ny+2,
-    nz+2) and face coefficients (nx+1, ny, nz), (nx, ny+1, nz), (nx, ny,
-    nz+1) of pp's dtype on pp's device."""
-    if pp.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{_KERNEL}: pp must be float32 or bfloat16; got {pp.dtype}")
-    nx, ny, nz = (s - 2 for s in pp.shape)
-    shapes = {"pp": (nx + 2, ny + 2, nz + 2), "gamma_x": (nx + 1, ny, nz),
-              "gamma_y": (nx, ny + 1, nz), "gamma_z": (nx, ny, nz + 1)}
-    for (name, shape), t in zip(shapes.items(), (pp, *gamma_f)):
-        if (t.dtype != pp.dtype or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != pp.device):
-            raise ValueError(
-                f"{_KERNEL}: {name} must be a contiguous {pp.dtype} tensor of shape {shape} "
-                f"on {pp.device}; got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
-
-
 def laplacian_facegamma_fused(gamma_f: Flux, pp: torch.Tensor, grid: Grid) -> torch.Tensor:
     """div(gamma_f grad p) (nx, ny, nz) from the padded pp, in pp's dtype
     (float32 or bfloat16). CPU tensors run the plain version; CUDA tensors
     launch the kernel of csrc/laplacian.cu or raise."""
-    _check(gamma_f, pp)
-    if pp.device.type == "cpu":
+    dtype, dev = pp.dtype, pp.device
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{_KERNEL}: pp must be float32 or bfloat16; got {dtype}")
+    nx, ny, nz = shape = tuple(s - 2 for s in pp.shape)
+    kernels.require(_KERNEL, dev, ("pp", pp, pp.shape, dtype, False),
+                    ("gamma_x", gamma_f[0], (nx + 1, ny, nz), dtype, False),
+                    ("gamma_y", gamma_f[1], (nx, ny + 1, nz), dtype, False),
+                    ("gamma_z", gamma_f[2], (nx, ny, nz + 1), dtype, False))
+    if kernels.on_cpu(_KERNEL, dev):
         return laplacian_facegamma_padded(gamma_f, pp, grid)
-    if pp.device.type != "cuda":
-        raise ValueError(f"{_KERNEL}: unsupported device {pp.device}")
-    from ..kernels import call
-    shape = tuple(s - 2 for s in pp.shape)
-    ip, fp = _params(shape, tuple(float(h) for h in grid.spacing),
-                     _sm_count(pp.device.index if pp.device.index is not None
-                               else torch.cuda.current_device()))
-    bf16 = pp.dtype == torch.bfloat16
-    out = torch.empty(shape, dtype=pp.dtype, device=pp.device)
-    call("laplacian", "yofc_laplacian_bf16" if bf16 else "yofc_laplacian", _KERNEL, ip, fp,
-         pp, *gamma_f, out, device=pp.device)
-    laplacian_facegamma_fused.launches += 1
-    laplacian_facegamma_fused.launches_bf16 += bf16
+    ip, fp = _params(shape, tuple(float(h) for h in grid.spacing), kernels.sm_count(dev))
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    kernels.call("laplacian", "yofc_laplacian_bf16" if dtype == torch.bfloat16 else
+                 "yofc_laplacian", _KERNEL, ip, fp, pp, *gamma_f, out, device=dev)
     return out
-
-
-laplacian_facegamma_fused.launches = 0
-laplacian_facegamma_fused.launches_bf16 = 0

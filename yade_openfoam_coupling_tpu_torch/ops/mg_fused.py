@@ -13,9 +13,9 @@ beside it, the V-cycle's own operations in its own order:
   of at most `COARSE_MAX_CELLS` cells, in one launch of one block.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. Each wrapper counts its launches (``.launches``). The ghosts are
-those of `grid.pad_scalar` under the level's BCs, which must be
-homogeneous (every Dirichlet value zero), as the preconditioner's are.
+raises (`kernels.on_cpu`); `kernels.LAUNCHES` counts the launches. The
+ghosts are those of `grid.pad_scalar` under the level's BCs, which must
+be homogeneous (every Dirichlet value zero), as the preconditioner's are.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from .grid import DIRICHLET, NEUMANN, PERIODIC, FieldBC, Grid, pad_scalar
 from .stencil import Flux, laplacian_facegamma_padded
 
@@ -115,40 +116,34 @@ def _params(shape: Tuple[int, int, int], spacing: Tuple[float, float, float], bc
     return ip, fp
 
 
-def _check(level: MGLevel, b: torch.Tensor, x: Optional[torch.Tensor] = None,
-           ec: Optional[torch.Tensor] = None, halves: bool = False) -> bool:
+def _on_cpu(level: MGLevel, b: torch.Tensor, x: Optional[torch.Tensor] = None,
+            ec: Optional[torch.Tensor] = None, halves: bool = False) -> bool:
     """Raise on what the kernels do not take: contiguous float32 b (nx,
     ny, nz), the level's face arrays, x (nx, ny, nz) and ec (nx/2, ny/2,
-    nz/2) where given, all on b's device, a CPU or CUDA device; even sides
-    where the level is restricted or corrected (``halves``). -> whether b
-    lies on the CPU."""
-    if b.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_KERNEL}: unsupported device {b.device}")
-    nx, ny, nz = level.grid.shape
+    nz/2) where given, all on b's device; even sides where the level is
+    restricted or corrected (``halves``). -> `kernels.on_cpu` of b."""
+    cpu = kernels.on_cpu(_KERNEL, b.device)
+    nx, ny, nz = shape = level.grid.shape
     if halves and (nx % 2 or ny % 2 or nz % 2):
         raise ValueError(f"{_KERNEL}: a level with a coarse level below must have even "
-                         f"sides; got {level.grid.shape}")
-    expected = [("b", b, (nx, ny, nz)), ("gamma_x", level.gamma_f[0], (nx + 1, ny, nz)),
-                ("gamma_y", level.gamma_f[1], (nx, ny + 1, nz)),
-                ("gamma_z", level.gamma_f[2], (nx, ny, nz + 1)), ("x", x, (nx, ny, nz)),
-                ("ec", ec, (nx // 2, ny // 2, nz // 2))]
-    for name, t, shape in expected:
-        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
-                              or not t.is_contiguous() or t.device != b.device):
-            raise ValueError(
-                f"{_KERNEL}: {name} must be a contiguous float32 tensor of shape {shape} on "
-                f"{b.device}; got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
-    return b.device.type == "cpu"
+                         f"sides; got {shape}")
+    f32 = torch.float32
+    kernels.require(_KERNEL, b.device, ("b", b, shape, f32, False),
+                    ("gamma_x", level.gamma_f[0], (nx + 1, ny, nz), f32, False),
+                    ("gamma_y", level.gamma_f[1], (nx, ny + 1, nz), f32, False),
+                    ("gamma_z", level.gamma_f[2], (nx, ny, nz + 1), f32, False),
+                    ("x", x, shape, f32, False),
+                    ("ec", ec, (nx // 2, ny // 2, nz // 2), f32, False))
+    return cpu
 
 
 def _launch(fn: str, level: MGLevel, b: torch.Tensor, out_shape, omega: float, sweeps: int,
             *arrays) -> torch.Tensor:
-    from ..kernels import call
     ip, fp = _params(tuple(level.grid.shape), tuple(float(h) for h in level.grid.spacing),
                      level.bc, float(omega), sweeps)
     out = torch.empty(out_shape, dtype=b.dtype, device=b.device)
-    call("mg_vcycle", fn, _KERNEL, ip, fp, *arrays, *level.gamma_f, out, device=b.device)
+    kernels.call("mg_vcycle", fn, _KERNEL, ip, fp, *arrays, *level.gamma_f, out,
+                 device=b.device)
     return out
 
 
@@ -156,45 +151,29 @@ def jacobi(level: MGLevel, x: Optional[torch.Tensor], b: torch.Tensor, omega: fl
            ec: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One damped-Jacobi sweep x' + omega D^-1 (b - A x'), x' = x +
     prolong(ec) (x None: zero; ec None: x), into a new tensor."""
-    if _check(level, b, x, ec, halves=ec is not None):
+    if _on_cpu(level, b, x, ec, halves=ec is not None):
         return jacobi_plain(level, x, b, omega, ec)
-    out = _launch("yofc_mg_jacobi", level, b, b.shape, omega, 0, x, ec, b)
-    jacobi.launches += 1
-    return out
+    return _launch("yofc_mg_jacobi", level, b, b.shape, omega, 0, x, ec, b)
 
 
 def residual_restrict(level: MGLevel, x: Optional[torch.Tensor],
                       b: torch.Tensor) -> torch.Tensor:
     """restrict(b - A x) (x None: zero), (nx/2, ny/2, nz/2)."""
-    if _check(level, b, x, halves=True):
+    if _on_cpu(level, b, x, halves=True):
         return residual_restrict_plain(level, x, b)
     nx, ny, nz = level.grid.shape
-    out = _launch("yofc_mg_residual_restrict", level, b, (nx // 2, ny // 2, nz // 2), 1.0, 0,
-                  x, b)
-    residual_restrict.launches += 1
-    return out
+    return _launch("yofc_mg_residual_restrict", level, b, (nx // 2, ny // 2, nz // 2), 1.0, 0,
+                   x, b)
 
 
 def coarse(level: MGLevel, b: torch.Tensor, sweeps: int, omega: float) -> torch.Tensor:
     """`sweeps` sweeps from zero on a level of at most COARSE_MAX_CELLS
     cells (zero sweeps: zero)."""
-    if _check(level, b):
+    if _on_cpu(level, b):
         return coarse_plain(level, b, sweeps, omega)
     if level.grid.ncells > COARSE_MAX_CELLS:
         raise ValueError(f"{_KERNEL}: the coarse kernel takes at most {COARSE_MAX_CELLS} "
                          f"cells; got {level.grid.shape}")
     if sweeps == 0:
         return torch.zeros_like(b)
-    out = _launch("yofc_mg_coarse", level, b, b.shape, omega, sweeps, b)
-    coarse.launches += 1
-    return out
-
-
-jacobi.launches = 0
-residual_restrict.launches = 0
-coarse.launches = 0
-
-
-def launches() -> int:
-    """The three kernels' launches so far."""
-    return jacobi.launches + residual_restrict.launches + coarse.launches
+    return _launch("yofc_mg_coarse", level, b, b.shape, omega, sweeps, b)

@@ -12,14 +12,15 @@ offset o's channels to cell + o:
 count of 1 to 27 taps, a batched tap loop for 28 to 640: the
 ``stencil_width=5`` cube has 125), or raises, and its plain PyTorch
 version `distribute_rolls_reference` (the sequential roll loop of the JAX
-package's `coupling._deposit_anchor_rolls`) for CPU tensors;
-``distribute_rolls.launches`` counts kernel launches.
+package's `coupling._deposit_anchor_rolls`) for CPU tensors.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 _KERNEL = "rolls kernel"
 _MAX_TAPS = 640
@@ -66,19 +67,12 @@ def distribute_rolls(bufT: torch.Tensor, offsets: np.ndarray) -> torch.Tensor:
     CPU tensors run the plain version; CUDA tensors launch the kernel of
     csrc/rolls_deposit.cu or raise."""
     plane = _plane_stride(bufT, offsets)
-    if bufT.device.type == "cpu":
+    if kernels.on_cpu(_KERNEL, bufT.device):
         return distribute_rolls_reference(bufT, offsets)
-    if bufT.device.type != "cuda":
-        raise ValueError(f"{_KERNEL}: unsupported device {bufT.device}")
-    from ..kernels import call
     S, C, nx, ny, nz = bufT.shape
     ip = np.concatenate([[S, C, nx, ny, nz, plane],
                          np.asarray(offsets).reshape(-1)]).astype(np.int32)
     out = torch.empty((C, nx, ny, nz), dtype=torch.float32, device=bufT.device)
-    call("rolls_deposit", "yofc_rolls_deposit", _KERNEL, ip, bufT, out,
-         device=bufT.device)
-    distribute_rolls.launches += 1
+    kernels.call("rolls_deposit", "yofc_rolls_deposit", _KERNEL, ip, bufT, out,
+                 device=bufT.device)
     return out
-
-
-distribute_rolls.launches = 0

@@ -163,7 +163,7 @@ def main(argv=None) -> int:
         g = [(0.5 + torch.rand(s, generator=gen, device=dev)).to(bf)
              for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1))]
         out = torch.empty((n,) * 3, dtype=bf, device=dev)
-        ip, fp = fs._params((n,) * 3, (1e-3,) * 3, fs._sm_count(dev.index))
+        ip, fp = fs._params((n,) * 3, (1e-3,) * 3, kernels.sm_count(dev))
         ref = None
         fns = {}
         for label, so in libs.items():
@@ -198,6 +198,7 @@ def sweep(dev, card, reps, cuda_ms):
     """Device-only ms of the checkout's bf16 entry at 128^3 and 64^3 for
     each (threads a block, blocks an SM) of its geometry, in turns."""
     import torch
+    from yade_openfoam_coupling_tpu_torch import kernels
     from yade_openfoam_coupling_tpu_torch.ops import fused_stencil as fs
     from yade_openfoam_coupling_tpu_torch.ops.grid import Grid
     variants = [(t, b) for t in (128, 256) for b in (2, 4, 8, 16)]
@@ -217,7 +218,7 @@ def sweep(dev, card, reps, cuda_ms):
         for (t, b), ts in times.items():
             fs.BF16_THREADS, fs.BF16_BLOCKS_PER_SM = t, b
             print(json.dumps({"threads": t, "blocks_per_sm": b, "shape": [n] * 3,
-                              "geometry": fs.bf16_geometry((n,) * 3, fs._sm_count(dev.index)),
+                              "geometry": fs.bf16_geometry((n,) * 3, kernels.sm_count(dev)),
                               "device_ms": ts, "card": card}), flush=True)
     fs.BF16_THREADS, fs.BF16_BLOCKS_PER_SM = default
     fs._params.cache_clear()

@@ -12,7 +12,7 @@ with bound_i = nch[i] (``dynamic``) or W / w_chunk. It is the prototype of
 the window kernel's per-plane dynamic trip count. CPU tensors run the plain
 version `stage_planes_reference` (the one-hot product per chunk); CUDA
 tensors launch the kernel of `csrc/dynwin_staging.cu`, which reads nch on
-the device, or raise. ``stage_planes.launches`` counts kernel launches.
+the device, or raise.
 
     python -m yade_openfoam_coupling_tpu_torch.scripts.proto_dynwin [--device cpu]
 
@@ -28,6 +28,8 @@ import sys
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 _KERNEL = "dynwin staging kernel"
 NY, NZ, W, W_CHUNK = 128, 128, 2048, 512
@@ -98,26 +100,14 @@ def stage_planes(dat: torch.Tensor, nch: torch.Tensor, ny: int, nz: int, w_chunk
     """-> (nxl, ny, nz). CPU tensors run the plain version; CUDA tensors
     launch the kernel of csrc/dynwin_staging.cu or raise."""
     _check(dat, nch, w_chunk)
-    if dat.device.type == "cpu":
+    if kernels.on_cpu(_KERNEL, dat.device):
         return stage_planes_reference(dat, nch, ny, nz, w_chunk, dynamic)
-    if dat.device.type != "cuda":
-        raise ValueError(f"{_KERNEL}: unsupported device {dat.device}")
-    from ..kernels import call
     nxl, _, Wd = dat.shape
-    ip = kernel_params(nxl, Wd, ny, nz, w_chunk, bool(dynamic), _sm_count(dat.device))
+    ip = kernel_params(nxl, Wd, ny, nz, w_chunk, bool(dynamic), kernels.sm_count(dat.device))
     out = torch.empty((nxl, ny, nz), dtype=torch.float32, device=dat.device)
-    call("dynwin_staging", "yofc_dynwin_staging", _KERNEL, ip, dat, nch.contiguous(), out,
-         device=dat.device)
-    stage_planes.launches += 1
+    kernels.call("dynwin_staging", "yofc_dynwin_staging", _KERNEL, ip, dat, nch.contiguous(),
+                 out, device=dat.device)
     return out
-
-
-stage_planes.launches = 0
-
-
-@functools.lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def prototype_inputs():
